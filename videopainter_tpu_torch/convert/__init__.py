@@ -1,0 +1,3 @@
+from .from_jax import branch_state_dict, transformer_state_dict, vae_state_dict
+
+__all__ = ["branch_state_dict", "transformer_state_dict", "vae_state_dict"]
