@@ -4,19 +4,31 @@
     python3 chip_smoke.py    # everything below, on one card
 
 Phases (each fails the run loudly, exit code != 0):
- 0. build the hand-written kernel from `videopainter_tpu_torch/csrc/`
-    and print ptxas' report;
- 1. hold each kernel against its plain PyTorch version on the card: small
-    ragged shapes, kv_len, the paged mask, the logsumexp, and the flagship
-    shape the main path gives it, where the kernel, its plain version and
-    the PyTorch library call computing the same function are timed;
- 2. the main path at full CogVideoX-5b-I2V width: the flagship dual-stream
-    inpaint pipeline (42-layer DiT, 2-layer branch, default VAE) with seeded
-    random bf16 weights, on a 49x480x720 clip, CFG 6 with dynamic CFG,
-    replace_gt, mask_add, use_flash, 2 DPM steps, then the VAE decode; the
-    launch counts are zeroed just before the call and read just after;
- 3. the same pipeline at a small size, kernel path against the exact
-    attention path on the card.
+ 0. build the hand-written kernels from `videopainter_tpu_torch/csrc/` (one
+    nvcc per source, side by side) and print ptxas' report;
+ 1. hold each kernel against its plain PyTorch version on the card. The bf16
+    flash forward: small ragged shapes, kv_len, the paged mask, the
+    logsumexp, and the flagship shape, where the kernel, its plain version
+    and the PyTorch library call computing the same function are timed. The
+    int8 flash forward: ragged, kv_len, paged, twice the keys, with and
+    without int8 P.V, at quantization blocks 128/128 and the defaults, and
+    the two flagship shapes (17,776 queries with 17,776 and 35,552 keys),
+    where kernel, quantization prologue and plain version are timed, with the
+    bf16 kernel and SDPA on the same inputs for orientation. Its
+    uniform-scale precursor: one small and the 17,776 shape;
+ 2. the single-clip path at full CogVideoX-5b-I2V width: the flagship
+    dual-stream inpaint pipeline (42-layer DiT, 2-layer branch, default VAE)
+    with seeded random bf16 weights, on a 49x480x720 clip, CFG 6 with dynamic
+    CFG, replace_gt, mask_add, use_flash, 2 DPM steps, then the VAE decode;
+    the launch counts are zeroed just before the call and read just after;
+ 3. the any-length path at the same width in its int8 serving mode: merged
+    rank-256 adapter, W8A8 block projections, int8 flash attention with ID
+    resampling (twice the keys), compressed int8 capture; 81 frames in 2
+    windows of 49, 2 DPM steps per window, one VAE decode; counts zeroed
+    before and read after;
+ 4. both pipelines at a small size on the card: the bf16 kernel path against
+    the exact attention path (single clip and any-length), and the int8
+    kernel path against the same pipeline on the int8 kernel's plain version.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -30,8 +42,10 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet, SXM)
+H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s
 FLASH_REL_TOL = 2.0 ** -6   # |kernel - plain| over max|plain|: two bf16 ulps at the
                             # largest output (both round it to bf16; the kernel also
@@ -39,6 +53,15 @@ FLASH_REL_TOL = 2.0 ** -6   # |kernel - plain| over max|plain|: two bf16 ulps at
                             # outputs are far below 1 (about 0.012 rms at 17,776 keys),
                             # so an absolute limit would not scale with them.
 LSE_TOL = 1e-3             # same fp32 scores, another summation order
+INT8PV_REL_L1 = 0.03       # int8 P.V mode, mean|kernel - plain| over mean|plain|. The
+                            # kernel rounds P * 127 against the running max of each
+                            # 64-key tile, the plain version (as the TPU kernel) of each
+                            # blk_k block; with N(0,1) inputs and thousands of keys most
+                            # P * 127 lie below 1, so their rounding is most of this
+                            # mode's error against exact attention (2.5-3.5 %), and the
+                            # two roundings differ by a like amount (1-2 % measured).
+INT8PV_VS_EXACT = 1.25     # and the kernel's error against exact attention stays
+                            # within this factor of the plain version's
 SMALL_PSNR_DB = 30.0       # kernel path vs exact-attention path, bf16, 2 steps
 
 
@@ -141,6 +164,158 @@ def phase_kernels(torch, fa):
             "bound_ms": bound, "bound_by": bound_by}
 
 
+def int8_bound_ms(bh, s_q, n_keys, d, int8_pv):
+    """Least time for one int8 flash call: Q.K^T over the int8 peak plus P.V
+    over the bf16 peak (the int8 peak with int8 P.V), or its bytes (int8 q and
+    k, bf16 or int8 v, bf16 o, each once) over the HBM rate."""
+    half = 2.0 * bh * s_q * n_keys * d
+    ops_ms = (half / H100_INT8_OPS + half / (H100_INT8_OPS if int8_pv else H100_BF16_FLOPS)) * 1e3
+    nbytes = bh * d * (s_q + n_keys + (1 if int8_pv else 2) * n_keys + 2 * s_q)
+    bytes_ms = nbytes / H100_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rel_l1(a, b):
+    return ((a.float() - b.float()).abs().mean() / b.float().abs().mean()).item()
+
+
+def phase_int8_kernels(torch, fa, fa8):
+    """Phase 1, int8: flash_int8_fwd and its uniform precursor against their
+    plain versions on the card. Returns the two rows' numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def mk(b, h, s, d=64):  # heads split from a [B, S, H*D] projection by a view
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    def check(name, q, k, v, blk, pv, kw, exact=True):
+        """One case: the kernel (through the wrapper) against the plain version."""
+        out = fa8.flash_attention_int8(q, k, v, blk_q=blk[0], blk_k=blk[1], int8_pv=pv, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = fa8.flash_attention_int8_reference(q, k, v, blk_q=blk[0], blk_k=blk[1],
+                                                 int8_pv=pv, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, tol = flash_err(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        mode = "int8pv" if pv else "int8"
+        if pv:
+            rel = rel_l1(out, ref)
+            msg = (f"flash_int8_fwd {name} {mode} blk {blk}: rel_l1 {rel:.4f} "
+                   f"(limit {INT8PV_REL_L1}), max_abs_err {err:.3e}")
+            ok = rel <= INT8PV_REL_L1
+            if exact:
+                ex = fa.flash_attention_reference(q, k, v, **kw)
+                r_k, r_p = rel_l1(out, ex), rel_l1(ref, ex)
+                msg += f"; vs exact: kernel {r_k:.4f}, plain {r_p:.4f} (limit {INT8PV_VS_EXACT}x)"
+                ok = ok and r_k <= INT8PV_VS_EXACT * r_p
+        else:
+            msg = (f"flash_int8_fwd {name} {mode} blk {blk}: max_abs_err {err:.3e} "
+                   f"(tol {tol:.3e})")
+            ok = err <= tol
+        log(msg + f", finite {finite}")
+        if not (ok and finite):
+            raise AssertionError(msg)
+        return err, plain_ms
+
+    cases = [("ragged 129x1111", (2, 3, 129, 1111), {}),
+             ("kv_len 513 of 700", (1, 4, 300, 700), dict(kv_len=513)),
+             ("paged 2x400, kv_len 333", (2, 2, 257, 800), dict(kv_len=333, kv_page_len=400)),
+             ("paged 3x400, kv_len 130: whole tiles masked", (1, 2, 200, 1200),
+              dict(kv_len=130, kv_page_len=400)),
+             ("keys 2x300", (2, 2, 300, 600), {}),
+             ("ragged blocks 1500x5000", (1, 2, 1500, 5000), {})]
+    worst = 0.0
+    for name, (b, h, s_q, s_k), kw in cases:
+        for pv in (False, True):
+            for blk in ((128, 128), (512, 2048)):
+                q, k, v = mk(b, h, s_q), mk(b, h, s_k) + 0.7, mk(b, h, s_k)
+                err, _ = check(name, q, k, v, blk, pv, kw)
+                if not pv:
+                    worst = max(worst, err)
+
+    # the two flagship calls: CFG batch 2 x 48 heads, 17,776 queries; the
+    # branch attends to 17,776 keys, the DiT's ID resample to twice as many
+    b, h, s, d = 2, 48, 17776, 64
+    shapes = {}
+    for s_k in (s, 2 * s):
+        q, k, v = mk(b, h, s), mk(b, h, s_k), mk(b, h, s_k)
+        row = {}
+        for pv in (False, True):
+            mode = "int8pv" if pv else "int8"
+            err, plain_ms = check(f"flagship [{b}x{h}, {s}, {s_k} keys]", q, k, v, (512, 2048),
+                                  pv, {}, exact=False)
+            if not pv:
+                worst = max(worst, err)
+            qq = fa8.quantize_qkv(q, k, v, blk_q=512, blk_k=2048, int8_pv=pv)
+            ms = cuda_time_ms(lambda: fa8.flash_int8_fwd_cuda(qq, d ** -0.5, s_k, None, 512,
+                                                              2048, pv), 10)
+            pro_ms = cuda_time_ms(lambda: fa8.quantize_qkv(q, k, v, blk_q=512, blk_k=2048,
+                                                           int8_pv=pv), 5)
+            del qq
+            bound, by = int8_bound_ms(b * h, s, s_k, d, pv)
+            row[mode] = {"ms": ms, "prologue_ms": pro_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by}
+            log(f"flash_int8_fwd flagship {s_k} keys {mode}: kernel {ms:.3f} ms, prologue "
+                f"{pro_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.3f} ms ({by}); "
+                f"{4.0 * b * h * s * s_k * d / ms / 1e9:.1f} TOP/s")
+        row["b1_ms"] = cuda_time_ms(lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None,
+                                                              False), 10)
+        row["sdpa_bf16_ms"] = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)
+        log(f"  orientation, same bf16 inputs: bf16 kernel {row['b1_ms']:.3f} ms, "
+            f"SDPA {row['sdpa_bf16_ms']:.3f} ms (no PyTorch call computes int8 attention)")
+        shapes[s_k] = row
+        del q, k, v
+
+    # the uniform-scale precursor: [N, S, 64] int8 operands
+    def uniform_case(n, s_len, kv_len):
+        qi, ki, vi = (torch.randint(-127, 128, (n, s_len, d), generator=gen, device="cuda",
+                                    dtype=torch.int8) for _ in range(3))
+        vb = torch.randn((n, s_len, d), generator=gen, device="cuda").to(torch.bfloat16)
+        deq = 3.0 / (127 * 127)   # scores of a few units, as quantized N(0,1) data give
+        res = {}
+        for pv, v in ((False, vb), (True, vi)):
+            out = fa8.int8_flash_uniform(qi, ki, v, d ** -0.5, deq, kv_len, int8_pv=pv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = fa8.int8_flash_uniform_reference(qi, ki, v, d ** -0.5, deq, kv_len, int8_pv=pv)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err, tol = flash_err(out, ref)
+            rel = rel_l1(out, ref)
+            mode = "int8pv" if pv else "int8"
+            msg = (f"flash_int8_uniform_fwd [{n}, {s_len}, {d}] kv_len {kv_len} {mode}: "
+                   f"max_abs_err {err:.3e} (tol {tol:.3e}), rel_l1 {rel:.4f} "
+                   f"(limit {INT8PV_REL_L1})")
+            log(msg)
+            if not (bool(torch.isfinite(out).all())
+                    and (rel <= INT8PV_REL_L1 if pv else err <= tol)):
+                raise AssertionError(msg)
+            ms = cuda_time_ms(lambda: fa8.int8_flash_uniform(qi, ki, v, d ** -0.5, deq, kv_len,
+                                                             int8_pv=pv), 5)
+            res[mode] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+        return res
+
+    uniform_case(6, 1000, 901)
+    uni = uniform_case(b * h, s, s)
+    ub, uby = int8_bound_ms(b * h, s, s, d, False)
+    log(f"flash_int8_uniform_fwd [{b * h}, {s}, {d}]: int8 {uni['int8']['ms']:.3f} ms, int8pv "
+        f"{uni['int8pv']['ms']:.3f} ms, plain {uni['int8']['plain_ms']:.1f} ms, bound "
+        f"{ub:.3f} ms ({uby})")
+    main_shape = shapes[2 * s]["int8"]   # the call the DiT's 42 layers make
+    b4 = {"max_abs_err": worst, "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+          "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+          "library_ms": None, "shape": f"[{b}x{h}, {s} q, {2 * s} keys, {d}] int8",
+          "by_shape": {str(k): v for k, v in shapes.items()}}
+    b5 = {"max_abs_err": uni["int8"]["max_abs_err"], "ms": uni["int8"]["ms"],
+          "plain_ms": uni["int8"]["plain_ms"], "bound_ms": ub, "bound_by": uby,
+          "library_ms": None, "shape": f"[{b * h}, {s}, {d}] int8",
+          "int8pv_ms": uni["int8pv"]["ms"]}
+    return b4, b5
+
+
 def phase_pipeline(torch, kernels):
     """Phase 2: the full-width flagship pipeline; returns the launch counts."""
     from videopainter_tpu_torch.config import TransformerConfig, VAEConfig
@@ -211,6 +386,152 @@ def phase_pipeline(torch, kernels):
     return launches
 
 
+def phase_anyl_int8(torch, kernels):
+    """Phase 3: the any-length int8 flagship at full width; returns the launch
+    counts of that run."""
+    from videopainter_tpu_torch.flagship import (ANYL_FRAMES, ANYL_INT8_CALL,
+                                                 build_anyl_int8_pipeline, random_clip)
+    from videopainter_tpu_torch.ops.basic import Int8Linear
+    from videopainter_tpu_torch.pipelines import inpaint_anyl
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    t0 = time.perf_counter()
+    pipe = build_anyl_int8_pipeline(gen)
+    torch.cuda.synchronize()
+    tcfg = pipe.transformer.cfg
+    n_int8 = sum(isinstance(m, Int8Linear) for m in pipe.transformer.modules())
+    log(f"any-length int8: {tcfg.num_layers}-layer DiT (id_pool_resample_learnable "
+        f"{tcfg.id_pool_resample_learnable}), {n_int8} int8 linears in the DiT, rank-256 "
+        f"adapter merged; built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    f, hgt, wid = ANYL_FRAMES, 480, 720
+    clip = random_clip(gen, frames=f, height=hgt, width=wid)
+
+    events = []   # (kind, end time, seconds)
+
+    def timed(fn, kind):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            events.append((kind, time.perf_counter(), time.perf_counter() - s0))
+            return r
+        return run
+
+    pipe.vae.encode = timed(pipe.vae.encode, "encode")
+    pipe.vae.decode = timed(pipe.vae.decode, "decode")
+    captured = []
+    make = inpaint_anyl.make_denoise_fn
+
+    def make_measured(*a, **kw):
+        denoise = make(*a, **kw)
+
+        def run(*da, **dkw):
+            latents, hs, mask = denoise(*da, **dkw)
+            tensors = list(hs.values()) if isinstance(hs, dict) else [] if hs is None else [hs]
+            captured.append(sum(t.numel() * t.element_size() for t in tensors))
+            return latents, hs, mask
+        return run
+
+    def progress(i, n):
+        torch.cuda.synchronize()
+        last = events[-1][1] if events else start
+        events.append((f"step {i}", time.perf_counter(), time.perf_counter() - last))
+
+    inpaint_anyl.make_denoise_fn = make_measured
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        start = time.perf_counter()
+        out = pipe(**clip, num_inference_steps=2, generator=gen, output_type="pt",
+                   progress_fn=progress, **ANYL_INT8_CALL)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        inpaint_anyl.make_denoise_fn = make
+    peak = torch.cuda.max_memory_allocated()
+
+    expected = (tcfg.num_layers + 2) * 2 * 2
+    shape_ok = tuple(out.shape) == (1, f, hgt, wid, 3)
+    finite = bool(torch.isfinite(out).all())
+    log(f"any-length int8: out {tuple(out.shape)} finite {finite}; flash_int8_fwd launches "
+        f"{launches['flash_int8_fwd']} (expected {expected} = 44 layers x 2 steps x 2 "
+        f"windows), flash_fwd launches {launches['flash_fwd']} (expected 0)")
+    log("any-length int8 wall times: " + ", ".join(f"{k} {s:.3f} s" for k, _, s in events)
+        + f"; total {total:.3f} s; captured state per window "
+        + ", ".join(f"{c / 2**20:.1f} MiB" for c in captured)
+        + f"; peak memory {peak / 2**30:.2f} GiB")
+    if not (shape_ok and finite):
+        raise AssertionError(f"any-length output {tuple(out.shape)} finite={finite}")
+    if launches["flash_int8_fwd"] != expected or launches["flash_fwd"] != 0:
+        raise AssertionError(f"any-length int8 launches {launches}, expected "
+                             f"{expected} flash_int8_fwd and 0 flash_fwd")
+    if not captured[0] > 0 or captured[-1] != 0:
+        raise AssertionError(f"captured state per window {captured}: the first window "
+                             "must capture, the last must not")
+    return launches
+
+
+def psnr_db(a, b):
+    mse = (a - b).square().mean().item()
+    return 10 * math.log10(4.0 / max(mse, 1e-20))  # range [-1, 1]
+
+
+def phase_small_anyl(torch):
+    """Phase 4, any-length: a small pipeline (head dim 64, 2 windows) on the
+    card. (a) the bf16 kernel path (twice the keys under ID resampling)
+    against the exact-attention path; (b) the int8 kernel path on the W8A8
+    model against the same pipeline with the int8 kernel's plain version put
+    in its place."""
+    from videopainter_tpu_torch.config import TransformerConfig, VAEConfig
+    from videopainter_tpu_torch.flagship import (ANYL_INT8_CALL, build_anyl_int8_pipeline,
+                                                 random_clip)
+    from videopainter_tpu_torch.ops import attention, flash_attention_int8 as fa8
+
+    tcfg = TransformerConfig.tiny(in_channels=32, out_channels=16, attention_head_dim=64,
+                                  sample_height=8, sample_width=12,
+                                  id_pool_resample_learnable=True)
+    call = dict(ANYL_INT8_CALL, num_frames=9, stride=4, num_inference_steps=2,
+                vae_sample_mode="mode", output_type="pt")
+
+    def run(int8, **kw):
+        gen = torch.Generator(device="cuda").manual_seed(11)   # same weights, clip and noise
+        pipe = build_anyl_int8_pipeline(gen, tcfg=tcfg, vcfg=VAEConfig.tiny(latent_channels=16),
+                                        lora_rank=4, int8=int8)
+        clip = random_clip(gen, frames=13, height=64, width=96, text_len=5, text_dim=12)
+        inits = [torch.randn((1, 3, 8, 12, 16), generator=gen, device="cuda") for _ in range(2)]
+        dpms = [torch.randn((2, 1, 3, 8, 12, 16), generator=gen, device="cuda") for _ in range(2)]
+        return pipe(**clip, init_noises=inits, dpm_noises_list=dpms, **dict(call, **kw)).float()
+
+    exact = run(False, use_flash=False, capture_int8=False)
+    flash = run(False, use_flash=True, capture_int8=False)
+    psnr = psnr_db(flash, exact)
+    finite = bool(torch.isfinite(flash).all())
+    log(f"small any-length pipeline, bf16 kernel (2 S keys) vs exact path: PSNR {psnr:.1f} dB "
+        f"(min {SMALL_PSNR_DB}), finite {finite}")
+    if not (finite and psnr >= SMALL_PSNR_DB):
+        raise AssertionError("small any-length pipeline: bf16 kernel path disagrees with exact")
+
+    kernel = run(True)
+    wrapper = attention.flash_attention_int8
+    attention.flash_attention_int8 = fa8.flash_attention_int8_reference
+    try:
+        plain = run(True)
+    finally:
+        attention.flash_attention_int8 = wrapper
+    psnr = psnr_db(kernel, plain)
+    finite = bool(torch.isfinite(kernel).all())
+    log(f"small any-length pipeline, W8A8 + int8 kernel vs the same on the kernel's plain "
+        f"version: PSNR {psnr:.1f} dB (min {SMALL_PSNR_DB}), finite {finite}; int8 path vs "
+        f"exact bf16 path: PSNR {psnr_db(kernel, exact):.1f} dB (no limit)")
+    if not (finite and psnr >= SMALL_PSNR_DB):
+        raise AssertionError("small any-length pipeline: int8 kernel path disagrees with "
+                             "its plain version")
+
+
 def phase_small(torch):
     """Phase 3: a small pipeline (head dim 64) on the card, the kernel path
     against the exact-attention path on the same weights and noise."""
@@ -229,8 +550,7 @@ def phase_small(torch):
         kw = dict(FLAGSHIP_CALL, use_flash=flash)
         outs[flash] = pipe(**clip, num_inference_steps=2, vae_sample_mode="mode",
                            init_noise=noise, dpm_noises=dpm, output_type="pt", **kw).float()
-    mse = (outs[True] - outs[False]).square().mean().item()
-    psnr = 10 * math.log10(4.0 / max(mse, 1e-20))  # range [-1, 1]
+    psnr = psnr_db(outs[True], outs[False])
     finite = bool(torch.isfinite(outs[True]).all())
     log(f"small pipeline: kernel path vs exact path PSNR {psnr:.1f} dB "
         f"(min {SMALL_PSNR_DB}), finite {finite}")
@@ -252,6 +572,7 @@ def main() -> int:
         import videopainter_tpu_torch as vp
         from videopainter_tpu_torch import _kernels as kernels
         from videopainter_tpu_torch.ops import flash_attention as fa
+        from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing beside this script: {e}",
               file=sys.stderr)
@@ -261,23 +582,44 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    kernels.load("flash_fwd.cu", fa._SIGNATURES)
-    log(f"built kernels in {time.perf_counter() - t:.1f} s")
+    sources = (("flash_fwd.cu", fa._SIGNATURES), ("flash_int8_fwd.cu", fa8._SIGNATURES))
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
+        for fut in [pool.submit(kernels.load, *src) for src in sources]:
+            fut.result()
+    log(f"built {len(sources)} kernel sources in {time.perf_counter() - t:.1f} s")
     for src, text in kernels.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {src}: {line.strip()}")
 
     stats = phase_kernels(torch, fa)
+    b4, b5 = phase_int8_kernels(torch, fa, fa8)
     launches = phase_pipeline(torch, kernels)
+    anyl_launches = phase_anyl_int8(torch, kernels)
     phase_small(torch)
+    phase_small_anyl(torch)
 
-    row = {"name": "flash_fwd", "route": "cuda",
-           "source": "videopainter_tpu_torch/csrc/flash_fwd.cu",
-           "replaces": "videopainter_tpu/ops/flash_attention.py:68",
-           "launches": launches["flash_fwd"], "max_abs_err": stats["max_abs_err"],
-           **stats}
-    print(json.dumps({"kernels": [row]}), flush=True)
+    # the uniform-scale precursor is driven by its tool, the port's
+    # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
+    from videopainter_tpu_torch.tools import bench_int8_attn
+    kernels.reset_launches()
+    bench_int8_attn.main(["--iters", "2"])
+    tool_launches = dict(kernels.LAUNCHES)
+    if tool_launches["flash_int8_uniform_fwd"] < 1:
+        raise AssertionError(f"the int8 tool launched no uniform kernel: {tool_launches}")
+
+    int8_src = "videopainter_tpu_torch/csrc/flash_int8_fwd.cu"
+    rows = [{"name": "flash_fwd", "route": "cuda",
+             "source": "videopainter_tpu_torch/csrc/flash_fwd.cu",
+             "replaces": "videopainter_tpu/ops/flash_attention.py:68",
+             "launches": launches["flash_fwd"], **stats},
+            {"name": "flash_int8_fwd", "route": "cuda", "source": int8_src,
+             "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
+             "launches": anyl_launches["flash_int8_fwd"], **b4},
+            {"name": "flash_int8_uniform_fwd", "route": "cuda", "source": int8_src,
+             "replaces": "tools/bench_int8_attn.py:37",
+             "launches": tool_launches["flash_int8_uniform_fwd"], **b5}]
+    print(json.dumps({"kernels": rows}), flush=True)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,

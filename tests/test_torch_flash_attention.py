@@ -29,9 +29,13 @@ def make_qkv(s_q, s_k, b=2, h=2, d=16, seed=0):
 
 
 def jax_interpret(fn, *args, **kw):
+    """One jitted program, fetched at once: an eager JAX op dispatched while an
+    interpret-mode kernel still runs its host callbacks can block with the
+    interpreter lock held."""
+    arrays = [jax.numpy.asarray(a) for a in args]
     with jax.experimental.pallas.tpu.force_tpu_interpret_mode():
-        out = fn(*(jax.numpy.asarray(a) for a in args), blk_q=128, blk_k=128, **kw)
-    return jax.tree.map(np.asarray, out)
+        out = jax.jit(lambda: fn(*arrays, blk_q=128, blk_k=128, **kw))()
+        return jax.tree.map(np.asarray, out)
 
 
 @pytest.mark.parametrize("s_q,s_k,kw", [

@@ -30,6 +30,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(res["modules"]) >= 20, res["modules"]
+    assert len(res["modules"]) >= 26, res["modules"]
     assert res["bad"] == [], f"the port imported {res['bad']}"
-    assert res["launches"] == {"flash_fwd": 0} and res["libs"] == []
+    assert res["launches"] == {"flash_fwd": 0, "flash_int8_fwd": 0,
+                               "flash_int8_uniform_fwd": 0} and res["libs"] == []
+    for name in ("quantize", "models.lora", "ops.flash_attention_int8",
+                 "pipelines.inpaint_anyl", "tools.bench_int8_attn"):
+        assert f"videopainter_tpu_torch.{name}" in res["modules"]

@@ -11,11 +11,24 @@ fall back to the CPU on their own (`resolve_device`).
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "set_numerics"]
+__all__ = ["card_line", "resolve_device", "set_numerics"]
+
+
+def card_line() -> str:
+    """The card's name and power limit as `nvidia-smi` gives them, to print
+    beside every time measured on it (a card set below its maximum runs
+    slower under load)."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -4,7 +4,9 @@ Each source under `csrc/` is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-into a shared library with a plain C interface, loaded through `ctypes`.
+into a shared library with a plain C interface, loaded through `ctypes`
+(`flash_fwd.cu`: the bf16 flash forward; `flash_int8_fwd.cu`: the int8 flash
+forward and its uniform-scale precursor).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source and flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing is built or loaded
@@ -32,10 +34,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_int8_fwd": 0,
+                            "flash_int8_uniform_fwd": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()            # guards _SOURCE_LOCKS
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}   # one build per source at a time
 
 
 def reset_launches() -> None:
@@ -63,8 +67,11 @@ def _lib_path(source: str) -> Path:
 
 def load(source: str, signatures: Dict[str, List]) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<source>; `signatures` maps each C
-    function to its ctypes argtypes (restype is int, a cudaError_t)."""
+    function to its ctypes argtypes (restype is int, a cudaError_t). Threads
+    loading different sources build them side by side (one nvcc each)."""
     with _LOCK:
+        source_lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _LIBS:
             return _LIBS[source]
         if not torch.cuda.is_available():

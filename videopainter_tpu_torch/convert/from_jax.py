@@ -12,6 +12,11 @@ both packages compute with the same weights.
  - Conv2d:   kernel HWIO                    -> [O, I, kh, kw]
  - LayerNorm/GroupNorm: scale -> weight, bias -> bias
  - stacked blocks [L, ...]                  -> transformer_blocks.{i}.*
+ - int8 linear: kernel_q [in, out] int8     -> weight_q [out, in]; kscale, ascale kept
+   (`load_quantized`: a quantized tree has other modules than a plain one)
+ - LoRA tree (lora_A, lora_B [L, ...])      -> tensors (`lora_params`)
+ - captured cross-window state (array, compressed, or the int8 dict) -> tensors
+   (`captured_state`)
 """
 
 from __future__ import annotations
@@ -29,7 +34,13 @@ def _t(x) -> torch.Tensor:
 
 
 def _linear(sd: StateDict, prefix: str, p: dict) -> None:
-    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "kernel_q" in p:
+        sd[f"{prefix}.weight_q"] = _t(np.asarray(p["kernel_q"]).T)
+        sd[f"{prefix}.kscale"] = _t(p["kscale"])
+        if p.get("ascale") is not None:
+            sd[f"{prefix}.ascale"] = _t(np.asarray(p["ascale"], np.float32))
+    else:
+        sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
     if p.get("bias") is not None:
         sd[f"{prefix}.bias"] = _t(p["bias"])
 
@@ -77,7 +88,8 @@ def transformer_state_dict(params: dict, *, patch_size: int = 2) -> StateDict:
         sd["patch_embed.pos_embedding"] = _t(pe["pos_embedding"])
     _linear(sd, "time_embedding.linear_1", params["time_embedding"]["linear_1"])
     _linear(sd, "time_embedding.linear_2", params["time_embedding"]["linear_2"])
-    n = np.asarray(params["blocks"]["attn1"]["to_q"]["kernel"]).shape[0]
+    to_q = params["blocks"]["attn1"]["to_q"]
+    n = np.asarray(to_q["kernel_q"] if "kernel_q" in to_q else to_q["kernel"]).shape[0]
     for i in range(n):
         _block(sd, f"transformer_blocks.{i}", _layer(params["blocks"], i))
     _norm(sd, "norm_final", params.get("norm_final"))
@@ -97,6 +109,45 @@ def branch_state_dict(params: dict, *, patch_size: int = 2) -> StateDict:
     if params.get("branch_x_embedder") is not None:
         _linear(sd, "branch_x_embedder", params["branch_x_embedder"])
     return sd
+
+
+def load_quantized(model, sd: StateDict):
+    """Load a state dict converted from an int8-quantized JAX tree into a
+    plain `model` (in place; returns it): every linear that the state dict
+    holds as `weight_q` / `kscale` (/ `ascale`) becomes an `Int8Linear` with
+    exactly those values, so both packages compute with the same quantized
+    weights; the rest loads as usual."""
+    from ..ops.basic import Int8Linear
+
+    sd = dict(sd)
+    int8_keys = []
+    for key in [k for k in sd if k.endswith(".weight_q")]:
+        path = key[:-len(".weight_q")]
+        parent, _, name = path.rpartition(".")
+        lin = Int8Linear(sd.pop(key), sd.pop(f"{path}.kscale"), sd.pop(f"{path}.bias", None),
+                         sd.pop(f"{path}.ascale", None))
+        setattr(model.get_submodule(parent), name, lin)
+        int8_keys += [f"{path}.{k}" for k in lin.state_dict()]
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = sorted(set(missing) - set(int8_keys))
+    if missing or unexpected:
+        raise KeyError(f"load_quantized: missing {missing}, unexpected {list(unexpected)}")
+    return model
+
+
+def lora_params(tree: dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX LoRA tree {target: {"lora_A": [L, d_in, r], "lora_B": [L, r, d_out]}}
+    -> the same tree as tensors (the port keeps the stacked layout)."""
+    return {tgt: {k: _t(v) for k, v in ab.items() if k in ("lora_A", "lora_B")}
+            for tgt, ab in tree.items()}
+
+
+def captured_state(hs):
+    """Captured per-layer states of the JAX DiT -> tensors: the full or the
+    compressed array, or the int8 dict {"values", "scales"}."""
+    if isinstance(hs, dict):
+        return {k: _t(v) for k, v in hs.items()}
+    return _t(hs)
 
 
 def _conv3d(sd: StateDict, prefix: str, p: dict) -> None:

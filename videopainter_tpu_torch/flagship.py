@@ -1,20 +1,28 @@
-"""The flagship configuration at full width with seeded random weights, and a
-profile of one of its denoise steps.
+"""The flagship configurations at full width with seeded random weights, and
+a profile of one of their denoise steps.
 
 `build_pipeline` makes CogVideoXI2VDualInpaintPipeline at CogVideoX-5b-I2V
 width (42-layer DiT, 48x64 heads, 2-layer branch, default VAE) with random
 bf16 weights drawn on the device from a torch.Generator; `random_clip` makes
-a 49x480x720 clip, a mask and prompt embeddings. The real checkpoints are
-not in the repository, so numbers from these weights measure speed and
-memory, not quality.
+a 49x480x720 clip, a mask and prompt embeddings. `build_anyl_int8_pipeline`
+makes the any-length ID-resample pipeline in its int8 serving mode: the same
+models with the learnable ID resample, a seeded rank-256 adapter merged into
+the DiT's attention weights, then the block projections of DiT and branch
+quantized to W8A8 in place; `ANYL_INT8_CALL` holds its call arguments (int8
+flash attention, compressed int8 capture). The real checkpoints are not in
+the repository, so numbers from these weights measure speed and memory, not
+quality.
 
-    python -m videopainter_tpu_torch.flagship [--out DIR]
+    python -m videopainter_tpu_torch.flagship [--anyl-int8] [--out DIR]
 
-runs 3 denoise steps on the card and profiles the second with torch.profiler:
-prints device time by kernel class (flash attention, GEMM, other), the
-step's elapsed device time between two CUDA events, the device's idle share
-in that same step, and the wall time of the third (untraced) step; the full
-table goes to DIR/flagship_profile.txt (default build/profile/).
+runs 3 denoise steps on the card and profiles the second with torch.profiler
+(with --anyl-int8: two windows of an 81-frame clip, 3 steps each, profiling
+the second step of the second window, which attends to the first window's
+captured state): prints device time by kernel class (flash attention, GEMM,
+other), the step's elapsed device time between two CUDA events, the device's
+idle share in that same step, and the wall time of the next (untraced) step;
+the full table goes to DIR/flagship_profile.txt or
+DIR/flagship_anyl_int8_profile.txt (default build/profile/).
 """
 
 from __future__ import annotations
@@ -27,15 +35,19 @@ from typing import Dict, Optional
 
 import torch
 
+from . import card_line
 from .config import BranchConfig, SchedulerConfig, TransformerConfig, VAEConfig
 from .models import AutoencoderKLCogVideoX, CogVideoXBranch, CogVideoXTransformer3D
-from .pipelines import CogVideoXI2VDualInpaintPipeline
+from .models.lora import init_lora_params, merge_lora
+from .pipelines import CogVideoXI2VDualInpaintAnyLPipeline, CogVideoXI2VDualInpaintPipeline
+from .quantize import quantize_transformer_int8
 from .schedulers import CogVideoXDPMScheduler
 
 
 def build_pipeline(generator: torch.Generator, *, device="cuda", dtype=torch.bfloat16,
                    tcfg: Optional[TransformerConfig] = None, branch_layers: int = 2,
-                   vcfg: Optional[VAEConfig] = None) -> CogVideoXI2VDualInpaintPipeline:
+                   vcfg: Optional[VAEConfig] = None,
+                   pipeline_cls=CogVideoXI2VDualInpaintPipeline):
     """Random-weight pipeline, built on the meta device and filled in place
     (the weights are never materialized twice)."""
     tcfg = tcfg or TransformerConfig.cogvideox_5b_i2v()
@@ -46,11 +58,39 @@ def build_pipeline(generator: torch.Generator, *, device="cuda", dtype=torch.bfl
         m = ctor(device="meta", dtype=dtype).to_empty(device=device)
         return m.init_random_(generator)
 
-    return CogVideoXI2VDualInpaintPipeline(
+    return pipeline_cls(
         build(lambda **kw: CogVideoXTransformer3D(tcfg, **kw)),
         build(lambda **kw: CogVideoXBranch(bcfg, **kw)),
         build(lambda **kw: AutoencoderKLCogVideoX(vcfg, **kw)),
         CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference()), device=device)
+
+
+LORA_RANK, LORA_ALPHA = 256, 128.0   # the VideoPainterID adapter's
+
+
+def build_anyl_int8_pipeline(generator: torch.Generator, *, device="cuda",
+                             dtype=torch.bfloat16, tcfg: Optional[TransformerConfig] = None,
+                             branch_layers: int = 2, vcfg: Optional[VAEConfig] = None,
+                             lora_rank: int = LORA_RANK, int8: bool = True
+                             ) -> CogVideoXI2VDualInpaintAnyLPipeline:
+    """The any-length ID-resample pipeline as it is served: random weights with
+    the learnable ID resample, a seeded adapter of `lora_rank` merged into the
+    DiT, then (int8) the W8A8 quantization of DiT and branch in place."""
+    tcfg = tcfg or TransformerConfig.cogvideox_5b_i2v(id_pool_resample_learnable=True)
+    pipe = build_pipeline(generator, device=device, dtype=dtype, tcfg=tcfg,
+                          branch_layers=branch_layers, vcfg=vcfg,
+                          pipeline_cls=CogVideoXI2VDualInpaintAnyLPipeline)
+    lora = init_lora_params(generator, pipe.transformer, rank=lora_rank, dtype=dtype)
+    for ab in lora.values():   # a trained adapter's B is not zero
+        b = ab["lora_B"]
+        ab["lora_B"] = ((torch.rand(b.shape, generator=generator, device=b.device) * 2 - 1)
+                        * b.shape[1] ** -0.5).to(dtype)
+    merge_lora(pipe.transformer, lora, alpha=LORA_ALPHA * lora_rank / LORA_RANK, rank=lora_rank)
+    del lora
+    if int8:
+        quantize_transformer_int8(pipe.transformer, free_source=True)
+        quantize_transformer_int8(pipe.branch, free_source=True)
+    return pipe
 
 
 def random_clip(generator: torch.Generator, *, frames=49, height=480, width=720,
@@ -69,30 +109,46 @@ def random_clip(generator: torch.Generator, *, frames=49, height=480, width=720,
 
 FLAGSHIP_CALL = dict(guidance_scale=6.0, use_dynamic_cfg=True, replace_gt=True,
                      mask_add=True, use_flash=True, dtype=torch.bfloat16)
+# 81 frames in windows of 49 with a stride of 32: 2 windows that overlap by 4
+# latent frames; prev_clip_weight 0 is the serving default (the resample path
+# still attends to the zeroed page of masked keys)
+ANYL_INT8_CALL = dict(FLAGSHIP_CALL, use_flash="int8", num_frames=49, stride=32,
+                      id_pool_resample=True, prev_clip_weight=0.0, compress_capture=2048,
+                      capture_int8=True)
+ANYL_FRAMES = 81
 
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
+    if "flash_int8" in n:
+        return "flash_attention_int8"
     if "flash_fwd" in n:
         return "flash_attention"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")):
-        return "gemm"
+        return "gemm_int8" if any(s in n for s in ("i8", "s8", "imma", "int8")) else "gemm"
     if "conv" in n or "cudnn" in n:
         return "conv"
     return "other"
 
 
-def profile_step(out_dir: str, seed: int = 0) -> dict:
-    """Profile denoise step 2 of 3 at full width; returns the summary."""
+def profile_step(out_dir: str, seed: int = 0, anyl_int8: bool = False) -> dict:
+    """Profile one denoise step at full width; returns the summary. The
+    single-clip flagship: step 2 of 3. The any-length int8 flagship: step 2 of
+    3 of the second window (global step 5 of 6)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    pipe = build_pipeline(gen)
-    clip = random_clip(gen)
+    if anyl_int8:
+        pipe, clip = build_anyl_int8_pipeline(gen), random_clip(gen, frames=ANYL_FRAMES)
+        call, traced, name = ANYL_INT8_CALL, 5, "flagship_anyl_int8_profile.txt"
+    else:
+        pipe, clip = build_pipeline(gen), random_clip(gen)
+        call, traced, name = FLAGSHIP_CALL, 2, "flagship_profile.txt"
+    after = traced + 1
     ends, starts = {}, {1: None}
-    ev_start = {i: torch.cuda.Event(enable_timing=True) for i in (2, 3)}
-    ev_end = {i: torch.cuda.Event(enable_timing=True) for i in (2, 3)}
+    ev_start = {i: torch.cuda.Event(enable_timing=True) for i in (traced, after)}
+    ev_end = {i: torch.cuda.Event(enable_timing=True) for i in (traced, after)}
 
     def mark(i, n):
         if i in ev_end:
@@ -104,12 +160,12 @@ def profile_step(out_dir: str, seed: int = 0) -> dict:
         if i + 1 in ev_start:
             ev_start[i + 1].record()
 
-    # wait=1: the first profiler step is VAE encode + denoise step 1;
-    # active=1: the second is exactly denoise step 2
+    # the first profiler step is VAE encode + denoise step 1; after `wait`
+    # of them, active=1 is exactly the traced denoise step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=0, active=1, repeat=1)) as prof:
+                 schedule=schedule(wait=traced - 1, warmup=0, active=1, repeat=1)) as prof:
         pipe(**clip, num_inference_steps=3, generator=gen, output_type="latent",
-             progress_fn=mark, **FLAGSHIP_CALL)
+             progress_fn=mark, **call)
     torch.cuda.synchronize()
     by_class: Dict[str, float] = {}
     rows = []
@@ -125,23 +181,24 @@ def profile_step(out_dir: str, seed: int = 0) -> dict:
         cls = _kernel_class(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
     rows.sort(reverse=True)
-    # busy and elapsed both from the traced step 2 (its host side slowed by
-    # the tracer, so the idle share is an upper bound); step 3 ran untraced
-    elapsed_ms = ev_start[2].elapsed_time(ev_end[2])
+    # busy and elapsed both from the traced step (its host side slowed by the
+    # tracer, so the idle share is an upper bound); the next step ran untraced
+    elapsed_ms = ev_start[traced].elapsed_time(ev_end[traced])
     busy_ms = sum(by_class.values())
     idle = 1 - busy_ms / elapsed_ms
     if idle < 0:
         raise RuntimeError(f"device busy {busy_ms:.3f} ms exceeds the step's elapsed "
                            f"{elapsed_ms:.3f} ms: the trace miscounts")
-    summary = {"step_wall_ms": (ends[3] - starts[3]) * 1e3,
-               "untraced_step_device_ms": ev_start[3].elapsed_time(ev_end[3]),
-               "profiled_step_wall_ms": (ends[2] - starts[2]) * 1e3,
+    summary = {"path": "anyl_int8" if anyl_int8 else "single_clip", "traced_step": traced,
+               "step_wall_ms": (ends[after] - starts[after]) * 1e3,
+               "untraced_step_device_ms": ev_start[after].elapsed_time(ev_end[after]),
+               "profiled_step_wall_ms": (ends[traced] - starts[traced]) * 1e3,
                "profiled_step_device_ms": elapsed_ms,
                "device_busy_ms": busy_ms, "idle_share": idle,
                "device_ms_by_class": by_class,
-               "device": torch.cuda.get_device_name(0)}
+               "device": torch.cuda.get_device_name(0), "card": card_line()}
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "flagship_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(json.dumps(summary) + "\n")
         for dev_us, count, key in rows:
             f.write(f"{dev_us / 1e3:12.3f} ms {count:6d}  {key}\n")
@@ -153,12 +210,14 @@ def profile_step(out_dir: str, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--anyl-int8", action="store_true",
+                    help="profile the any-length int8 flagship instead of the single clip")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the flagship profile needs an NVIDIA GPU")
     from . import set_numerics
     set_numerics(conv_tf32=True)
-    print(json.dumps(profile_step(args.out)))
+    print(json.dumps(profile_step(args.out, anyl_int8=args.anyl_int8)))
     return 0
 
 

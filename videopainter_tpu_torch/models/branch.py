@@ -11,14 +11,14 @@ forward; they are kept so the state dict round-trips.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..config import BranchConfig, TransformerConfig
 from ..ops.basic import Linear
-from .dit import CogVideoXTransformer3D, _CogVideoXBase
+from .dit import CogVideoXTransformer3D, _CogVideoXBase, run_block_calibrated
 
 
 class CogVideoXBranch(_CogVideoXBase):
@@ -73,16 +73,26 @@ class CogVideoXBranch(_CogVideoXBase):
         *,
         rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         conditioning_scale: float = 1.0,
-        use_flash: bool = False,
-    ) -> torch.Tensor:
-        """Returns stacked branch features [num_layers, B, S_vid, D]."""
-        if self.cfg.wo_text:
-            raise NotImplementedError("the wo_text branch belongs to a later slice")
+        use_flash: Union[bool, str] = False,
+        calibrate: bool = False,   # also return the [L, n_sites] activation amax of the
+                                   # dynamic int8 linears (quantize.calibrate_ascales)
+    ):
+        """Returns stacked branch features [num_layers, B, S_vid, D] (with
+        calibrate, the pair (features, amax)). cfg.wo_text runs video-only
+        blocks: the text is embedded but takes no part in the blocks."""
         x = torch.cat([hidden_states, branch_cond], dim=-1)
         emb, h, enc_h, _ = self._embed(x, encoder_hidden_states, timestep)
-        outs = []
+        wo_text = self.cfg.wo_text
+        outs, amaxes = [], []
         for blk, proj in zip(self.transformer_blocks, self.branch_blocks):
-            h, enc_h = blk(h, enc_h, emb, rope, use_flash=use_flash)
+            args = (h, None if wo_text else enc_h, emb, rope)
+            if calibrate:
+                (h, e), amax = run_block_calibrated(blk, *args, use_flash=use_flash)
+                amaxes.append(amax)
+            else:
+                h, e = blk(*args, use_flash=use_flash)
+            enc_h = enc_h if wo_text else e
             y = torch.nn.functional.linear(h, proj.weight.to(h.dtype))
             outs.append((y + proj.bias.to(y.dtype)) * conditioning_scale)
-        return torch.stack(outs)
+        out = torch.stack(outs)
+        return (out, torch.stack(amaxes)) if calibrate else out

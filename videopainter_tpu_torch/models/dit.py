@@ -7,15 +7,23 @@ branch-feature injection with optional mask gating. The blocks are an
 names, so a reference state dict loads with `load_state_dict`.
 
 The JAX package pads the joint sequence once to the flash block multiple (a
-Mosaic out-of-bounds rule); the port's kernel masks ragged tails itself, so
-the sequence stays at its true length. The resample, prev-clip,
-self-guidance and capture paths belong to the any-length slice.
+Mosaic out-of-bounds rule); the port's kernels mask ragged tails themselves,
+so the sequence stays at its true length.
+
+The any-length path lives here too: the joint `resample_mask` for ID
+resampling, per-layer previous-window states in three forms (full
+[L, B, S, D]; compressed [L, B, M, D] with `prev_hidden_indices`, scattered
+into a zero buffer whose extra slot S_joint takes the pad indices; the int8
+dict {"values", "scales"} dequantized per layer), captures of the per-layer
+states (`return_hidden_states`, `capture_indices`, `capture_quant`) and the
+activation-amax calibration pass of the int8 linears. The self-guidance swap
+belongs to the variants slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,7 +31,7 @@ from torch import nn
 
 from ..config import TransformerConfig
 from ..ops.attention import Attention
-from ..ops.basic import LayerNorm, Linear, init_random_
+from ..ops.basic import LayerNorm, Linear, calibration, init_random_
 from ..ops.embeddings import TimestepEmbedding, timestep_embedding
 from ..ops.feed_forward import FeedForward
 from ..ops.norms import AdaLayerNorm, LayerNormZero
@@ -82,26 +90,71 @@ class CogVideoXBlock(nn.Module):
                                    elementwise_affine=cfg.norm_elementwise_affine, **kw)
         self.ff = FeedForward(d, **kw)
 
-    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                temb: torch.Tensor, rope, *, use_flash: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        text_len = encoder_hidden_states.shape[1]
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor],
+                temb: torch.Tensor, rope, *, use_flash: Union[bool, str] = False,
+                resample_mask: Optional[torch.Tensor] = None,
+                prev_hidden_states: Optional[torch.Tensor] = None,  # [B, S_joint, D] raw
+                prev_clip_weight: Optional[float] = None,
+                prev_resample_mask: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """encoder_hidden_states=None selects the wo_text path."""
+        wo_text = encoder_hidden_states is None
+        text_len = 0 if wo_text else encoder_hidden_states.shape[1]
         norm_h, norm_e, gate_msa, enc_gate_msa = self.norm1(
             hidden_states, encoder_hidden_states, temb)
-        attn_h, attn_e = self.attn1(norm_h, norm_e, rope=rope, use_flash=use_flash)
+
+        norm_prev = None
+        if prev_hidden_states is not None:
+            # the raw previous-window states are re-normed with norm1 and the
+            # current temb before attention
+            np_vid, np_enc, _, _ = self.norm1(prev_hidden_states[:, text_len:],
+                                              prev_hidden_states[:, :text_len], temb)
+            norm_prev = torch.cat([np_enc, np_vid], dim=1)
+
+        attn_h, attn_e = self.attn1(norm_h, norm_e, rope=rope, use_flash=use_flash,
+                                    resample_mask=resample_mask,
+                                    prev_hidden_states=norm_prev,
+                                    prev_clip_weight=prev_clip_weight,
+                                    prev_resample_mask=prev_resample_mask)
         hidden_states = hidden_states + gate_msa * attn_h
-        encoder_hidden_states = encoder_hidden_states + enc_gate_msa * attn_e
+        if not wo_text:
+            encoder_hidden_states = encoder_hidden_states + enc_gate_msa * attn_e
 
         norm_h, norm_e, gate_ff, enc_gate_ff = self.norm2(
             hidden_states, encoder_hidden_states, temb)
+        if wo_text:
+            return hidden_states + gate_ff * self.ff(norm_h), None
         ff_out = self.ff(torch.cat([norm_e, norm_h], dim=1))
         hidden_states = hidden_states + gate_ff * ff_out[:, text_len:]
         encoder_hidden_states = encoder_hidden_states + enc_gate_ff * ff_out[:, :text_len]
         return hidden_states, encoder_hidden_states
 
 
+def run_block_calibrated(block: nn.Module, *args, **kwargs):
+    """Run one block and return (its outputs, the [n_sites] activation amaxes
+    of its dynamic int8 linears in call order)."""
+    with calibration(block) as taps:
+        out = block(*args, **kwargs)
+    if not taps:
+        raise ValueError("calibrate=True but no dynamic int8 linear ran: quantize the model "
+                         "first (quantize_transformer_int8) and don't pre-attach static scales")
+    return out, torch.stack(taps)
+
+
+def quantize_capture(ys: torch.Tensor) -> dict:
+    """Per-token symmetric int8 of captured states (scale = max|x| / 127 over
+    D, floored): {"values": int8 [..., D], "scales": fp32 [...]}."""
+    y32 = ys.float()
+    sc = y32.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    return {"values": torch.round(y32 / sc[..., None]).to(torch.int8), "scales": sc}
+
+
 class TransformerOutput(NamedTuple):
-    sample: torch.Tensor  # [B, T, H, W, out_C]
+    sample: torch.Tensor                       # [B, T, H, W, out_C]
+    hidden_states_list: Optional[Any] = None   # [L, B, S_joint | M, D], or the int8 dict
+    resample_mask: Optional[torch.Tensor] = None   # bool [B, S_joint]
+    calib_amax: Optional[torch.Tensor] = None      # [L, n_sites] (calibrate=True)
 
 
 class _CogVideoXBase(nn.Module):
@@ -178,20 +231,54 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         branch_block_samples: Optional[torch.Tensor] = None,  # [n_branch, B, S_vid, D]
         branch_block_masks: Optional[torch.Tensor] = None,    # [B, T_lat, H, W] float
         add_first: bool = False,
-        prev_hidden_states=None,
-        prev_clip_weight=None,
-        use_flash: bool = False,
+        prev_hidden_states: Optional[Any] = None,   # [L, B, S_joint, D], or compressed
+                                                    # [L, B, M, D], or {"values": int8,
+                                                    # "scales": fp32}
+        prev_clip_weight: Optional[float] = None,
+        prev_resample_mask: Optional[torch.Tensor] = None,   # bool [B, S_joint]
+        prev_hidden_indices: Optional[torch.Tensor] = None,  # int [B, M]: joint-sequence
+                                                    # positions of compressed prev states
+        id_pool_resample: bool = False,
+        return_hidden_states: bool = False,
+        capture_indices: Optional[torch.Tensor] = None,  # int [B, M]: capture only these
+        capture_quant: bool = False,                     # int8 per-token capture
+        use_flash: Union[bool, str] = False,
+        calibrate: bool = False,   # collect per-layer per-site activation amax of the
+                                   # dynamic int8 linears (quantize.calibrate_ascales)
     ) -> TransformerOutput:
         cfg = self.cfg
+        if (prev_hidden_indices is not None or isinstance(prev_hidden_states, dict)) \
+                and prev_hidden_states is not None and not cfg.id_pool_resample_learnable:
+            raise ValueError(
+                "compressed prev_hidden_states (prev_hidden_indices) are only valid on the "
+                "ID-resample path: the base processor's prev-clip blend reads the full "
+                "sequence of prev keys and values")
+        if calibrate and (return_hidden_states or prev_hidden_states is not None
+                          or id_pool_resample):
+            # the variant paths add to_k / to_v calls, which would scramble the
+            # site order of the recorded amaxes
+            raise ValueError("calibrate=True requires the plain forward path "
+                             "(no captures or variants)")
         if prev_hidden_states is not None and prev_clip_weight is None:
             # the attention variant keys on both; without a weight the prev
             # states would be silently ignored
             raise ValueError("prev_hidden_states requires prev_clip_weight")
-        if prev_hidden_states is not None:
-            raise NotImplementedError("prev-clip conditioning belongs to the any-length slice")
         b, num_frames, height, width, _ = hidden_states.shape
         emb, h, enc_h, patch_mask = self._embed(hidden_states, encoder_hidden_states,
                                                 timestep, masks=branch_block_masks)
+        text_len, s_vid = enc_h.shape[1], h.shape[1]
+        s_joint = text_len + s_vid
+
+        # resample mask over the joint sequence
+        resample_mask = None
+        if (id_pool_resample or return_hidden_states or prev_resample_mask is not None) \
+                and patch_mask is not None:
+            resample_mask = torch.cat(
+                [torch.zeros((b, text_len), dtype=torch.bool, device=h.device), patch_mask],
+                dim=1)
+        learnable = cfg.id_pool_resample_learnable
+        attn_resample_mask = resample_mask if (id_pool_resample and learnable) else None
+        prev_rs = prev_resample_mask if learnable else None
 
         n_layers = cfg.num_layers
         if branch_block_samples is not None:
@@ -205,15 +292,62 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                 bvalid = [True] * n_layers
         gate_mask = None if patch_mask is None else patch_mask[..., None]  # True: no injection
 
+        def prev_for_layer(i: int) -> Optional[torch.Tensor]:
+            if prev_hidden_states is None:
+                return None
+            if isinstance(prev_hidden_states, dict):
+                prev_h = (prev_hidden_states["values"][i].float()
+                          * prev_hidden_states["scales"][i][..., None]).to(h.dtype)
+            else:
+                prev_h = prev_hidden_states[i]
+            if prev_hidden_indices is not None:
+                # only masked-region tokens were captured, the only positions the
+                # resample processor reads (prev_resample_mask zeroes the rest), so
+                # scattering them into a zero buffer is exact; pad indices land in
+                # the extra slot S_joint, sliced off
+                full = torch.zeros((b, s_joint + 1, prev_h.shape[-1]), dtype=prev_h.dtype,
+                                   device=prev_h.device)
+                full[torch.arange(b, device=prev_h.device)[:, None],
+                     prev_hidden_indices.long()] = prev_h
+                prev_h = full[:, :s_joint]
+            return prev_h
+
+        captures, amaxes = [], []
         for i, block in enumerate(self.transformer_blocks):
-            h, enc_h = block(h, enc_h, emb, rope, use_flash=use_flash)
+            kw = dict(use_flash=use_flash, resample_mask=attn_resample_mask,
+                      prev_hidden_states=prev_for_layer(i), prev_clip_weight=prev_clip_weight,
+                      prev_resample_mask=prev_rs)
+            if calibrate:
+                (h, enc_h), amax = run_block_calibrated(block, h, enc_h, emb, rope, **kw)
+                amaxes.append(amax)
+            else:
+                h, enc_h = block(h, enc_h, emb, rope, **kw)
             if branch_block_samples is not None:
                 injected = h + branch_block_samples[bidx[i]].to(h.dtype) * float(bvalid[i])
                 h = injected if gate_mask is None else torch.where(gate_mask, h, injected)
+            if return_hidden_states:
+                ys = torch.cat([enc_h, h], dim=1)
+                if capture_indices is not None:
+                    # compressed capture: keep only the masked-region tokens (pad
+                    # slots gather a clamped in-range token; the consumer's scatter
+                    # drops them)
+                    idx = capture_indices.long().clamp(0, s_joint - 1)
+                    ys = torch.gather(ys, 1, idx[..., None].expand(-1, -1, ys.shape[-1]))
+                captures.append(quantize_capture(ys) if capture_quant else ys)
+
+        hs_list = None
+        if return_hidden_states:
+            if capture_quant:
+                hs_list = {k: torch.stack([c[k] for c in captures]) for k in captures[0]}
+            else:
+                hs_list = torch.stack(captures)
 
         # 2B norms the video tokens, 5B the joint sequence; the norm is per
         # token, so both are the norm of the video slice
         h = self.norm_final(h)
         h = self.norm_out(h, emb)
         h = self.proj_out(h)
-        return TransformerOutput(unpatchify(h, num_frames, height, width, cfg.patch_size))
+        return TransformerOutput(
+            sample=unpatchify(h, num_frames, height, width, cfg.patch_size),
+            hidden_states_list=hs_list, resample_mask=resample_mask,
+            calib_amax=torch.stack(amaxes) if calibrate else None)

@@ -12,7 +12,8 @@ cuDNN without transposes. Parameter names are the diffusers names.
    caches carried across batches as in the reference.
  - Tiled encode/decode with linear blending that keeps the reference's
    in-place quirk: each tile blends against its already-blended neighbours.
-The streaming decoder belongs to the any-length slice.
+The streaming decoder (the any-length pipeline's `stream_decode`) belongs to
+a later slice.
 """
 
 from __future__ import annotations

@@ -8,13 +8,22 @@ as the JAX package's `linear` does.
 
 The modules subclass `torch.nn` ones so their parameter names are the
 diffusers names (`weight`, `bias`), and a reference state dict loads with
-`load_state_dict`. The W8A8 int8 path of the JAX `linear` belongs to a later
-slice of the port.
+`load_state_dict`.
+
+`Int8Linear` is the W8A8 serving form of a linear (the JAX `linear`'s
+`kernel_q` dispatch): int8 weights with per-out-channel scales, activations
+quantized per token (dynamic `amax / 127`) or by a static calibrated `ascale`
+that clips at +-127, an exact int32 product (`torch._int_mm` on the card; the
+JAX package leaves this product to XLA too), dequantized in fp32. Forward
+only: it raises under autograd until the straight-through backward is ported
+with training. Both linears add a low-rank `lora` term when one is attached
+(`models/lora.attach_lora`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,9 +60,115 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def _lora_delta(mod: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """scale * (x @ A) @ B of an attached adapter (A [in, r], B [r, out])."""
+    a = getattr(mod, "lora_A", None)
+    if a is None:
+        return None
+    return (x @ a.to(x.dtype)) @ mod.lora_B.to(x.dtype) * mod.lora_scale.to(x.dtype)
+
+
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight, self.bias)
+        y = linear(x, self.weight, self.bias)
+        delta = _lora_delta(self, x)
+        return y if delta is None else y + delta
+
+
+def quantize_weight_int8(weight: torch.Tensor):
+    """weight [out, in] -> (int8 [out, in], fp32 scale [out]): symmetric
+    per-out-channel scales amax / 127 (1 for an all-zero channel)."""
+    w32 = weight.float()
+    amax = w32.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_matmul(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product xq [M, K] int8 @ weight_q [N, K]^T int8 -> [M, N].
+    On the card `torch._int_mm` (it wants more than 16 rows, so fewer are
+    padded, and K and N multiples of 8); on the CPU an int32 matmul."""
+    if xq.device.type != "cuda":
+        return torch.matmul(xq.to(torch.int32), weight_q.to(torch.int32).t())
+    m, k = xq.shape
+    n = weight_q.shape[0]
+    if k % 8 or n % 8:
+        raise ValueError(f"int8 matmul needs K and N multiples of 8, got K={k}, N={n}")
+    if m <= 16:
+        xq = torch.nn.functional.pad(xq, (0, 0, 0, 32 - m))
+    return torch._int_mm(xq.contiguous(), weight_q.t())[:m]
+
+
+class Int8Linear(nn.Module):
+    """W8A8 linear: `weight_q` int8 [out, in], `kscale` fp32 [out], optional
+    `bias`, optional static `ascale` (a scalar buffer; without it the
+    activation scale is dynamic per token)."""
+
+    def __init__(self, weight_q: torch.Tensor, kscale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 ascale: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.out_features, self.in_features = weight_q.shape
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("kscale", kscale)
+        self.register_buffer("bias", bias)
+        self.register_buffer("ascale", ascale)
+        self.calib: Optional[List[torch.Tensor]] = None   # see `calibration`
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                "Int8Linear is forward-only: the straight-through backward belongs to "
+                "the training slice; run it under torch.no_grad()")
+        x32 = x.float()
+        if self.ascale is not None:
+            xs = self.ascale.float()
+        else:
+            amax = x32.abs().amax(dim=-1, keepdim=True)
+            if self.calib is not None:
+                self.calib.append(amax.max())   # global amax, in call order
+            xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
+        acc = int8_matmul(xq.reshape(-1, self.in_features), self.weight_q)
+        y = acc.reshape(*x.shape[:-1], self.out_features).float() * xs * self.kscale
+        if self.bias is not None:
+            y = y + self.bias.float()
+        y = y.to(x.dtype)
+        delta = _lora_delta(self, x)
+        return y if delta is None else y + delta
+
+
+def quantize_linear_int8(lin: nn.Linear, *, free_source: bool = False) -> Int8Linear:
+    """A linear -> its W8A8 form (int8 weights, per-out-channel scales; bias
+    and an attached adapter carried over). free_source=True drops the source
+    weight from `lin` as soon as the int8 copy is built, so quantizing a model
+    on the card never holds both."""
+    q, scale = quantize_weight_int8(lin.weight.detach())
+    out = Int8Linear(q, scale, None if lin.bias is None else lin.bias.detach())
+    for name in ("lora_A", "lora_B", "lora_scale"):
+        if getattr(lin, name, None) is not None:
+            out.register_buffer(name, getattr(lin, name).detach(), persistent=False)
+    if free_source:
+        lin.weight = None
+    return out
+
+
+@contextmanager
+def calibration(module: nn.Module):
+    """Collect, for the duration of the block, the global activation amax of
+    every dynamic Int8Linear under `module`, in call order, into the list the
+    context yields. The collector is handed to exactly these linears and taken
+    away on exit."""
+    taps: List[torch.Tensor] = []
+    linears = [m for m in module.modules() if isinstance(m, Int8Linear)]
+    for m in linears:
+        m.calib = taps
+    try:
+        yield taps
+    finally:
+        for m in linears:
+            m.calib = None
 
 
 class LayerNorm(nn.LayerNorm):

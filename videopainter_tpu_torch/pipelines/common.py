@@ -8,19 +8,27 @@ branch + backbone, dynamic CFG, the DPM step with its x0 carry, and the
 replace_gt re-noise blend. Scheduler coefficients are precomputed on the
 host. The `init_noise` / `dpm_noises` hooks inject identical noise for
 parity tests.
+
+For the any-length pipeline the loop takes the previous window's state
+(`prev_state`: per-layer hidden states, resample mask, weight, and the token
+indices of a compressed capture) into every model pass, and captures this
+window's per-layer states at the final step only; `capture_token_indices`
+picks the masked-region tokens a compressed capture keeps.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import TransformerConfig
+from ..models.dit import TransformerOutput
 from ..models.vae import nearest_resize3d_ndhwc
+from ..ops.patch_embed import pool_patch_mask
 from ..ops.rope import get_3d_rotary_pos_embed, get_resize_crop_region_for_grid
 from ..schedulers import CogVideoXDPMScheduler
 
@@ -70,6 +78,33 @@ def dynamic_cfg_scales(timesteps: np.ndarray, num_inference_steps: int,
     return np.array(out, dtype=np.float32)
 
 
+def capture_token_indices(mask: torch.Tensor, patch_size: int, text_len: int,
+                          bucket: int = 2048) -> torch.Tensor:
+    """Joint-sequence gather indices for a compressed cross-window capture.
+
+    The ID-resample path stores per-layer hidden states only to multiply them
+    by `prev_resample_mask` in the next window, so keeping just the
+    masked-region tokens is exact while the [L, 2B, S, D] state shrinks by the
+    mask fraction. `mask` is the latent-grid mask [B, T_lat, h_lat, w_lat], the
+    tensor the model pools in its patch embed, so the indices match the
+    model's resample mask. Returns int32 [B, M] joint-sequence positions (text
+    offset applied), padded with S_joint (one past the end; the model's
+    scatter drops those). M is the largest per-sample masked-token count
+    rounded up to `bucket`, capped at S_joint.
+    """
+    pm = pool_patch_mask(mask, patch_size).cpu().numpy()
+    b, s_vid = pm.shape
+    s_joint = text_len + s_vid
+    counts = pm.sum(axis=1).astype(int)
+    m = int(np.ceil(max(int(counts.max()), 1) / bucket) * bucket)
+    m = min(m, s_joint)
+    idx = np.full((b, m), s_joint, dtype=np.int32)
+    for i in range(b):
+        nz = np.nonzero(pm[i])[0] + text_len
+        idx[i, :len(nz)] = nz
+    return torch.from_numpy(idx).to(mask.device)
+
+
 class DenoiseInputs(NamedTuple):
     """Device inputs to the denoise loop. B = real batch (pre-CFG)."""
 
@@ -81,6 +116,8 @@ class DenoiseInputs(NamedTuple):
     noise: torch.Tensor                    # [B, T, h, w, C] initial noise (replace_gt)
     video_latents: Optional[torch.Tensor]  # [B, T, h, w, C] clean latents (replace_gt)
     dpm_noises: Optional[torch.Tensor] = None  # [S, B, T, h, w, C] injected SDE noise
+    capture_indices: Optional[torch.Tensor] = None  # int32 [B, M]: compressed capture
+                                           # keeps only these joint-sequence positions
 
 
 @dataclass(frozen=True)
@@ -96,7 +133,11 @@ class DenoiseConfig:
     mask_add: bool
     mask_background: bool
     add_first: bool
-    use_flash: bool = False
+    wo_text: bool = False
+    id_pool_resample: bool = False
+    capture_hidden_states: bool = False   # capture per-layer states at the final step
+    capture_quant: bool = False           # int8 per-token capture (any-length ID path)
+    use_flash: Union[bool, str] = False   # False | True | "int8" | "int8pv"
     sequential_cfg: bool = False     # uncond/cond as two B-sized passes
     skip_steps: Optional[Tuple[int, ...]] = None  # reuse the previous pre-CFG
                                      # prediction at these steps (step 0 always runs)
@@ -105,9 +146,15 @@ class DenoiseConfig:
 def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
                     timesteps: np.ndarray,
                     progress_fn: Optional[Callable[[int], None]] = None):
-    """Build denoise(inputs, rope, generator) -> final latents.
+    """Build denoise(inputs, rope, generator, prev_state) ->
+    (final latents, hidden_states_list | None, resample_mask | None).
 
-    progress_fn(i) is called after step i completes on the host side.
+    prev_state: None or a dict with `prev_hidden_states` ([L, B, S, D], or
+    compressed [L, B, M, D], or the int8 dict), `prev_resample_mask` [B, S],
+    `prev_clip_weight` (float) and optionally `prev_hidden_indices` [B, M]:
+    the any-length cross-window conditioning. With
+    dcfg.capture_hidden_states the final step also returns its per-layer
+    states. progress_fn(i) is called after step i completes on the host side.
     """
     if not isinstance(scheduler, CogVideoXDPMScheduler):
         raise NotImplementedError("only the DPM scheduler is ported so far")
@@ -137,8 +184,12 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         run[si] = False
     if not run[0]:
         raise ValueError("step 0 cannot be skipped (nothing cached yet)")
+    if dcfg.capture_hidden_states and not run[S - 1]:
+        raise ValueError(f"step {S - 1} cannot be skipped with capture_hidden_states: the "
+                         "final (capture) step always evaluates the model")
 
-    def model_pass(inputs: DenoiseInputs, rope, latents, i, embeds, cfg_batch: bool):
+    def model_pass(inputs: DenoiseInputs, rope, latents, i, embeds, cfg_batch: bool,
+                   prev_state: Optional[Dict[str, Any]], capture: bool) -> TransformerOutput:
         tcfg = transformer.cfg
         rep = (lambda x: torch.cat([x, x], dim=0)) if cfg_batch else (lambda x: x)
         latent_video_input = rep(latents)
@@ -151,6 +202,15 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             latent_model_input = latent_video_input
         timestep = torch.full((latent_model_input.shape[0],), int(coeffs.timesteps[i]),
                               dtype=torch.long, device=latents.device)
+        kw: Dict[str, Any] = {}
+        if prev_state is not None:
+            kw.update({k: prev_state[k] for k in ("prev_hidden_states", "prev_clip_weight",
+                                                  "prev_resample_mask")})
+            if prev_state.get("prev_hidden_indices") is not None:
+                kw["prev_hidden_indices"] = prev_state["prev_hidden_indices"]
+        if capture and inputs.capture_indices is not None:
+            kw["capture_indices"] = rep(inputs.capture_indices)
+            kw["capture_quant"] = dcfg.capture_quant
         branch_cond = torch.cat([masked_lat, mask[..., None]], dim=-1)
         branch_samples = branch(latent_video_input, embeds, branch_cond, timestep,
                                 rope=rope, conditioning_scale=dcfg.conditioning_scale,
@@ -158,15 +218,51 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         return transformer(latent_model_input, embeds, timestep, rope=rope,
                            branch_block_samples=branch_samples,
                            branch_block_masks=mask if dcfg.mask_add else None,
-                           add_first=dcfg.add_first, use_flash=dcfg.use_flash).sample
+                           add_first=dcfg.add_first,
+                           id_pool_resample=dcfg.id_pool_resample,
+                           return_hidden_states=capture, use_flash=dcfg.use_flash, **kw)
 
-    def model_step(inputs: DenoiseInputs, rope, latents, i):
+    def tree_map(fn, *trees):
+        """fn over tensors or over the int8-capture dicts of tensors."""
+        if isinstance(trees[0], dict):
+            return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+        return fn(*trees)
+
+    def model_step(inputs: DenoiseInputs, rope, latents, i, prev_state,
+                   capture: bool) -> TransformerOutput:
         if dcfg.do_cfg and dcfg.sequential_cfg:
+            # uncond and cond as two B-sized passes; prev state and captures are
+            # handled per CFG half, so the cross-window conditioning equals the
+            # batched run's
             b = latents.shape[0]
-            out_u = model_pass(inputs, rope, latents, i, inputs.prompt_embeds[:b], False)
-            out_c = model_pass(inputs, rope, latents, i, inputs.prompt_embeds[b:], False)
-            return torch.cat([out_u, out_c], dim=0)
-        return model_pass(inputs, rope, latents, i, inputs.prompt_embeds, dcfg.do_cfg)
+
+            def half(lo, hi):
+                if prev_state is None:
+                    return None
+                out = dict(prev_state,
+                           prev_hidden_states=tree_map(lambda x: x[:, lo:hi],
+                                                       prev_state["prev_hidden_states"]),
+                           prev_resample_mask=prev_state["prev_resample_mask"][lo:hi])
+                if prev_state.get("prev_hidden_indices") is not None:
+                    out["prev_hidden_indices"] = prev_state["prev_hidden_indices"][lo:hi]
+                return out
+
+            out_u = model_pass(inputs, rope, latents, i, inputs.prompt_embeds[:b], False,
+                               half(0, b), capture)
+            out_c = model_pass(inputs, rope, latents, i, inputs.prompt_embeds[b:], False,
+                               half(b, 2 * b), capture)
+            out = out_c._replace(sample=torch.cat([out_u.sample, out_c.sample], dim=0))
+            if capture:
+                out = out._replace(
+                    hidden_states_list=tree_map(lambda u, c: torch.cat([u, c], dim=1),
+                                                out_u.hidden_states_list,
+                                                out_c.hidden_states_list),
+                    resample_mask=(None if out_c.resample_mask is None else
+                                   torch.cat([out_u.resample_mask, out_c.resample_mask],
+                                             dim=0)))
+            return out
+        return model_pass(inputs, rope, latents, i, inputs.prompt_embeds, dcfg.do_cfg,
+                          prev_state, capture)
 
     def scheduler_and_blend(inputs: DenoiseInputs, latents, old_x0, noise_pred, i, generator):
         noise_pred = noise_pred.float()
@@ -194,14 +290,21 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         return latents, x0
 
     @torch.no_grad()
-    def denoise(inputs: DenoiseInputs, rope, generator: Optional[torch.Generator] = None):
+    def denoise(inputs: DenoiseInputs, rope, generator: Optional[torch.Generator] = None,
+                prev_state: Optional[Dict[str, Any]] = None):
         latents, old_x0, pred = inputs.latents, None, None
+        hidden_states_list = resample_mask = None
         for i in range(S):
             if run[i]:
-                pred = model_step(inputs, rope, latents, i).float()
+                capture = dcfg.capture_hidden_states and i == S - 1
+                out = model_step(inputs, rope, latents, i, prev_state, capture)
+                pred = out.sample.float()
+                if capture:
+                    hidden_states_list, resample_mask = out.hidden_states_list, out.resample_mask
+                del out
             latents, old_x0 = scheduler_and_blend(inputs, latents, old_x0, pred, i, generator)
             if progress_fn is not None:
                 progress_fn(i)
-        return latents
+        return latents, hidden_states_list, resample_mask
 
     return denoise

@@ -54,7 +54,8 @@ class CogVideoXI2VDualInpaintPipeline:
     def prepare_inputs(
         self, *,
         video: torch.Tensor,                  # [B, T, H, W, 3] in [-1, 1]
-        image: Optional[torch.Tensor] = None,  # [B, H, W, 3] in [-1, 1]
+        image: Optional[torch.Tensor] = None,  # [B, H, W, 3] in [-1, 1] (pixels), or
+                                              # [B, 1, h, w, C] (a latent: any-length path)
         masks: torch.Tensor,                  # [B, T, H, W] float 0/1 (1 = hole)
         generator: Optional[torch.Generator] = None,
         strength: float = 1.0,
@@ -76,6 +77,8 @@ class CogVideoXI2VDualInpaintPipeline:
 
         if image is None:
             image_latents = torch.zeros((b, 1, h_lat, w_lat, c_lat), dtype=dtype, device=dev)
+        elif image.ndim == 5:
+            image_latents = image.to(dev, dtype)   # already a latent
         else:
             image_latents = self._vae_encode(image.to(dev, dtype)[:, None], generator,
                                              vae_sample_mode).to(dtype)
@@ -130,7 +133,7 @@ class CogVideoXI2VDualInpaintPipeline:
         init_noise: Optional[torch.Tensor] = None,
         dpm_noises: Optional[torch.Tensor] = None,
         output_type: str = "np",
-        use_flash: bool = False,
+        use_flash: Union[bool, str] = False,
         sequential_cfg: bool = False,
         skip_steps: Optional[Tuple[int, ...]] = None,
         progress_fn: Optional[Callable[[int, int], None]] = None,
@@ -139,11 +142,9 @@ class CogVideoXI2VDualInpaintPipeline:
         """Returns the decoded video [B, T, H, W, 3] in [-1, 1] (numpy for
         output_type="np", a tensor for "pt", latents for "latent").
 
-        use_flash: the hand-written flash-attention kernel for the joint
-        sequence (its plain version on the CPU).
+        use_flash: True for the hand-written bf16 flash-attention kernel,
+        "int8" / "int8pv" for the int8 one (their plain versions on the CPU).
         """
-        if wo_text or id_pool_resample:
-            raise NotImplementedError("wo_text / id_pool_resample belong to later slices")
         if video.shape[1] > 49:
             raise ValueError(f"num_frames {video.shape[1]} > 49; longer videos need "
                              "the any-length pipeline")
@@ -175,6 +176,7 @@ class CogVideoXI2VDualInpaintPipeline:
             use_dynamic_cfg=use_dynamic_cfg, guidance_scale=guidance_scale,
             conditioning_scale=conditioning_scale, replace_gt=replace_gt,
             mask_add=mask_add, mask_background=mask_background, add_first=add_first,
+            wo_text=wo_text, id_pool_resample=id_pool_resample,
             use_flash=use_flash, sequential_cfg=sequential_cfg,
             skip_steps=tuple(skip_steps) if skip_steps else None)
         n_steps = len(timesteps)
@@ -182,7 +184,7 @@ class CogVideoXI2VDualInpaintPipeline:
             self.transformer, self.branch, self.scheduler, dcfg, timesteps,
             progress_fn=(None if progress_fn is None
                          else lambda i: progress_fn(i + 1, n_steps)))
-        latents = denoise(inputs, rope, generator)
+        latents, _, _ = denoise(inputs, rope, generator)
 
         if output_type == "latent":
             return latents
