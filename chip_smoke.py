@@ -10,7 +10,12 @@ Phases (each fails the run loudly, exit code != 0):
     flash forward: small ragged shapes, kv_len, the paged mask, the
     logsumexp, and the flagship shape, where the kernel, its plain version
     and the PyTorch library call computing the same function are timed. The
-    int8 flash forward: ragged, kv_len, paged, twice the keys, with and
+    bf16 flash backward (dQ and dK/dV kernels): ragged shapes, S_q != S_k,
+    kv_len, the paged mask with a whole tile masked, strided head views, a
+    dO the wrapper has to copy, and the two flagship shapes of a training
+    step (17,776 queries with 17,776 and 35,552 keys), timed beside the plain
+    version and the library's backward (SDPA forward + backward minus its
+    forward). The int8 flash forward: ragged, kv_len, paged, twice the keys, with and
     without int8 P.V, at quantization blocks 128/128 and the defaults, and
     the two flagship shapes (17,776 queries with 17,776 and 35,552 keys),
     where kernel, quantization prologue and plain version are timed, with the
@@ -28,7 +33,15 @@ Phases (each fails the run loudly, exit code != 0):
     before and read after;
  4. both pipelines at a small size on the card: the bf16 kernel path against
     the exact attention path (single clip and any-length), and the int8
-    kernel path against the same pipeline on the int8 kernel's plain version.
+    kernel path against the same pipeline on the int8 kernel's plain version;
+ 5. training at the same full width: two optimizer steps of branch SFT (42-
+    layer frozen backbone, 2-layer float32 branch, batch 1, 49x480x720,
+    per-block checkpointing, AdamW) through the flash forward and backward
+    kernels; counts zeroed before and read after, and held to what the code
+    predicts; finite losses, moved parameters, no gradient on frozen weights;
+ 6. one ID-LoRA step at full width on a backbone cut to 4 layers (rank 256,
+    ID resampling: 35,552 keys in forward and backward);
+ 7. a small training step on the card, the kernels against exact attention.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -37,6 +50,7 @@ is missing or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -162,6 +176,135 @@ def phase_kernels(torch, fa):
         f"{4.0 * b * h * s * s * d / ms / 1e9:.1f} TFLOP/s")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": bound_by}
+
+
+def bwd_bound_ms(n_products, b, h, s_q, n_keys, d, n_out_rows):
+    """Least time for one backward kernel: `n_products` score-sized products
+    (dQ: S, dP, dS.K = 3; dK/dV: S, dP, P^T.dO, dS^T.Q = 4) over the bf16 peak,
+    or its bytes (q, k, v, dO, lse, delta read once, the gradients written
+    once) over the HBM rate."""
+    ops_ms = 2.0 * n_products * b * h * s_q * n_keys * d / H100_BF16_FLOPS * 1e3
+    nbytes = b * h * (2 * d * (2 * s_q + 2 * n_keys + n_out_rows) + 8 * s_q)
+    bytes_ms = nbytes / H100_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_bwd_kernels(torch, fa):
+    """Phase 1, backward: flash_dq and flash_dkv against
+    flash_attention_backward_reference on the card. Returns the two rows'
+    numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    d = 64
+
+    def mk(b, h, s, layout="bshd"):
+        if layout == "bshd":   # heads split from a [B, S, H*D] projection by a view
+            return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+                torch.bfloat16).transpose(1, 2)
+        if layout == "bhds":   # a transposed last dim: the wrapper has to copy it
+            return torch.randn((b, h, d, s), generator=gen, device="cuda").to(
+                torch.bfloat16).transpose(2, 3)
+        return torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run(q, k, v, dout, kw):
+        kv_len = kw.get("kv_len", k.shape[2])
+        out, lse = fa.flash_fwd_cuda(q, k, v, d ** -0.5, kv_len, kw.get("kv_page_len"), True)
+        grads = fa.flash_bwd_cuda(q, k, v, out, lse, dout, d ** -0.5, kv_len,
+                                  kw.get("kv_page_len"))
+        torch.cuda.synchronize()
+        return out, lse, grads
+
+    def compare(name, grads, refs):
+        errs = {}
+        for g_name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            err, tol = flash_err(got, ref)
+            finite = bool(torch.isfinite(got).all())
+            msg = (f"flash_bwd {name}: {g_name} max_abs_err {err:.3e} (tol {tol:.3e} = "
+                   f"2^-6 max|plain|), finite {finite}")
+            log(msg)
+            if not (err <= tol and finite):
+                raise AssertionError(msg)
+            errs[g_name] = err
+        return errs
+
+    cases = [("ragged 129x1111, contiguous heads", (2, 3, 129, 1111), "bhsd", "bhsd", {}),
+             ("300x700, kv_len 513, strided head views", (1, 4, 300, 700), "bshd", "bshd",
+              dict(kv_len=513)),
+             ("paged 2x400, kv_len 333, dO with a transposed last dim", (2, 2, 257, 800),
+              "bshd", "bhds", dict(kv_len=333, kv_page_len=400)),
+             ("paged 3x400, kv_len 130: whole tiles masked", (1, 2, 200, 1200), "bshd", "bhsd",
+              dict(kv_len=130, kv_page_len=400)),
+             ("keys 2x300, strided dO", (2, 2, 300, 600), "bshd", "bshd", {})]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for name, (b, h, s_q, s_k), layout, do_layout, kw in cases:
+        q, k, v = mk(b, h, s_q, layout), mk(b, h, s_k, layout), mk(b, h, s_k, layout)
+        dout = mk(b, h, s_q, do_layout)
+        out, lse, grads = run(q, k, v, dout, kw)
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, d ** -0.5, **kw)
+        for g_name, err in compare(name, grads, refs).items():
+            worst[g_name] = max(worst[g_name], err)
+        if "kv_len" in kw:   # masked keys: their rows of dK and dV are exactly 0
+            col = torch.arange(s_k, device="cuda")
+            dead = ~fa._kv_valid(col, kw["kv_len"], kw.get("kv_page_len"), s_k)
+            if grads[1][:, :, dead].abs().max().item() or grads[2][:, :, dead].abs().max().item():
+                raise AssertionError(f"flash_bwd {name}: a masked key got a gradient")
+
+    # the flagship calls of one training step: batch 1 x 48 heads, 17,776
+    # queries; 17,776 keys (branch SFT) and 35,552 (the LoRA step's ID resample)
+    b, h, s = 1, 48, 17776
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {}
+    for s_k in (s, 2 * s):
+        q, k, v, dout = mk(b, h, s), mk(b, h, s_k), mk(b, h, s_k), mk(b, h, s)
+        out, lse, grads = run(q, k, v, dout, {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, d ** -0.5)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = compare(f"flagship [{b}x{h}, {s}, {s_k} keys]", grads, refs)
+        for g_name, err in errs.items():
+            worst[g_name] = max(worst[g_name], err)
+        del refs, grads
+        delta = fa.flash_bwd_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, d ** -0.5, s_k, None)
+        dq_ms = cuda_time_ms(lambda: fa.flash_dq_cuda(*args), 5)
+        dkv_ms = cuda_time_ms(lambda: fa.flash_dkv_cuda(*args), 5)
+        delta_ms = cuda_time_ms(lambda: fa.flash_bwd_delta(out, dout), 5)
+        fwd_ms = cuda_time_ms(lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None, True), 5)
+        # the library's backward: forward + backward of SDPA minus its forward
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(ql, kl, vl), (ql, kl, vl), dout)
+
+        lib_both = cuda_time_ms(sdpa_fwd_bwd, 5)
+        lib_fwd = cuda_time_ms(lambda: sdpa(q, k, v), 5)
+        dq_bound, dq_by = bwd_bound_ms(3, b, h, s, s_k, d, s)
+        dkv_bound, dkv_by = bwd_bound_ms(4, b, h, s, s_k, d, 2 * s_k)
+        fwd_bound, _ = flash_bound_ms(b, h, s, s_k, d)
+        shapes[s_k] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "delta_ms": delta_ms,
+                       "fwd_with_lse_ms": fwd_ms, "plain_ms": plain_ms,
+                       "library_bwd_ms": lib_both - lib_fwd, "library_fwd_ms": lib_fwd,
+                       "dq_bound_ms": dq_bound, "dkv_bound_ms": dkv_bound,
+                       "fwd_bound_ms": fwd_bound, "dq_by": dq_by, "dkv_by": dkv_by}
+        log(f"flash_bwd flagship {s_k} keys: dq {dq_ms:.3f} ms (bound {dq_bound:.3f} ms, "
+            f"{dq_by}; {6.0 * b * h * s * s_k * d / dq_ms / 1e9:.1f} TFLOP/s), dkv "
+            f"{dkv_ms:.3f} ms (bound {dkv_bound:.3f} ms, {dkv_by}; "
+            f"{8.0 * b * h * s * s_k * d / dkv_ms / 1e9:.1f} TFLOP/s), delta {delta_ms:.3f} ms, "
+            f"plain (dq, dk, dv together) {plain_ms:.1f} ms, SDPA backward (dq, dk, dv "
+            f"together) {lib_both - lib_fwd:.3f} ms; forward with lse {fwd_ms:.3f} ms "
+            f"(bound {fwd_bound:.3f} ms), SDPA forward {lib_fwd:.3f} ms")
+        del q, k, v, dout, out, lse, delta, ql, kl, vl
+    main_shape = shapes[s]   # the call each of the branch-SFT step's blocks makes
+    common = {"plain_ms": main_shape["plain_ms"], "library_ms": main_shape["library_bwd_ms"],
+              "plain_and_library_cover": "flash_dq + flash_dkv together",
+              "shape": f"[{b}x{h}, {s} q, {s} keys, {d}] bf16",
+              "by_shape": {str(k): v for k, v in shapes.items()}}
+    b2 = {"max_abs_err": worst["dq"], "ms": main_shape["dq_ms"],
+          "bound_ms": main_shape["dq_bound_ms"], "bound_by": main_shape["dq_by"], **common}
+    b3 = {"max_abs_err": max(worst["dk"], worst["dv"]), "ms": main_shape["dkv_ms"],
+          "bound_ms": main_shape["dkv_bound_ms"], "bound_by": main_shape["dkv_by"], **common}
+    return b2, b3
 
 
 def int8_bound_ms(bh, s_q, n_keys, d, int8_pv):
@@ -475,6 +618,196 @@ def phase_anyl_int8(torch, kernels):
     return launches
 
 
+def timed_calls(torch, fn, bucket):
+    """`fn` with each call's wall time (synchronised) appended to `bucket`."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        bucket.append(time.perf_counter() - s0)
+        return r
+    return run
+
+
+def phase_train(torch, kernels):
+    """Phase 5: two optimizer steps of branch SFT at full CogVideoX-5b-I2V
+    width (42-layer frozen bf16 backbone, 2-layer float32 branch initialised
+    from it, default VAE, batch 1, 49x480x720, 226-token embeddings, mask_add,
+    per-block checkpointing, AdamW) with the flash forward and backward
+    kernels. Returns the launch counts of the two steps."""
+    from videopainter_tpu_torch.flagship import build_training
+    from videopainter_tpu_torch.training import (BranchTrainConfig, init_branch_train_state,
+                                                 make_branch_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    t0 = time.perf_counter()
+    t = build_training(gen)   # AdamW at the reference's 1e-5
+    transformer, branch, vae = t["transformer"], t["branch"], t["vae"]
+    cfg = BranchTrainConfig(mask_add=True, use_flash=True, remat=True)
+    state = init_branch_train_state(t["trainable"], t["optimizer"])
+    step = make_branch_train_step(transformer, branch, vae, t["scheduler"], t["optimizer"], cfg)
+    torch.cuda.synchronize()
+    n_layers, n_branch = transformer.cfg.num_layers, branch.cfg.num_layers
+    n_train = sum(p.numel() for p in branch.parameters())
+    log(f"training, full width: {n_layers}-layer bf16 backbone (frozen), {n_branch}-layer "
+        f"branch with {n_train / 1e9:.3f} B float32 parameters (trainable), AdamW, per-block "
+        f"checkpoints; built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    before = {n: p.detach().clone() for n, p in branch.named_parameters()}
+    enc_s = []
+    vae.encode = timed_calls(torch, vae.encode, enc_s)
+
+    n_steps = 2
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls, metrics = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        state, m = step(state, t["batch"], gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - s0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # every block runs its forward once; every block that a trainable parameter
+    # reaches is recomputed once and has one backward. The backbone's block 0
+    # is not among them: the first branch sample is added after it.
+    with_backward = n_branch + n_layers - 1
+    expected = {"flash_fwd": n_steps * (n_branch + n_layers + with_backward),
+                "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward,
+                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
+    enc_per_step = len(enc_s) // n_steps
+    for i, (w, m) in enumerate(zip(walls, metrics)):
+        enc = sum(enc_s[i * enc_per_step:(i + 1) * enc_per_step])
+        log(f"training step {i + 1}: {w:.3f} s wall (VAE encodes {enc:.3f} s of it, "
+            f"{enc_per_step} calls), " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+    log(f"training launches over {n_steps} steps: {launches} (expected {expected}); peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    if launches != expected:
+        raise AssertionError(f"training launches {launches}, expected {expected}")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"training metrics not finite: {m}")
+        if not m["gradient_norm_before_clip"] > 0:
+            raise AssertionError(f"gradient norm {m['gradient_norm_before_clip']}")
+    if state.step != n_steps:
+        raise AssertionError(f"state.step {state.step} after {n_steps} steps")
+    moved = sum((p.detach() - before[n]).abs().sum().item() for n, p in branch.named_parameters())
+    proj = [lin.weight.abs().max().item() for lin in branch.branch_blocks]
+    log(f"training: parameters moved by {moved:.4g} (sum |delta|); zero-initialised branch "
+        f"projections now max |w| " + ", ".join(f"{x:.3g}" for x in proj))
+    if not (moved > 0 and all(x > 0 for x in proj)):
+        raise AssertionError("the branch did not move, or its zero-initialised projections "
+                             "received no gradient")
+    frozen_bad = [n for mod in (transformer, vae) for n, p in mod.named_parameters()
+                  if p.grad is not None or p.requires_grad]
+    if frozen_bad:
+        raise AssertionError(f"frozen parameters with a gradient: {frozen_bad[:5]}")
+    return launches
+
+
+def phase_train_lora(torch, kernels):
+    """Phase 6: one ID-LoRA step at full width on a backbone cut to 4 layers
+    (2-layer frozen branch, rank-256 float32 adapter, id_pool_resample: twice
+    the keys in the backbone's attention, forward and backward)."""
+    from videopainter_tpu_torch.config import TransformerConfig
+    from videopainter_tpu_torch.flagship import LORA_ALPHA, LORA_RANK, build_training
+    from videopainter_tpu_torch.training import (BranchTrainConfig, init_branch_train_state,
+                                                 make_lora_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    depth = 4
+    tcfg = TransformerConfig.cogvideox_5b_i2v(num_layers=depth, id_pool_resample_learnable=True)
+    t = build_training(gen, mode="lora", tcfg=tcfg)
+    cfg = BranchTrainConfig(mask_add=True, use_flash=True, remat=True, id_pool_resample=True,
+                            lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+    state = init_branch_train_state(t["trainable"], t["optimizer"])
+    step = make_lora_train_step(t["transformer"], t["branch"], t["vae"], t["scheduler"],
+                                t["optimizer"], cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s0 = time.perf_counter()
+    state, m = step(state, t["batch"], gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - s0
+    launches = dict(kernels.LAUNCHES)
+    m = {k: float(v) for k, v in m.items()}
+    # the frozen branch runs without grad (2 forwards); every backbone block
+    # holds trainable A / B: forward, recompute and backward each
+    expected = {"flash_fwd": 2 + 2 * depth, "flash_dq": depth, "flash_dkv": depth,
+                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
+    b_max = {tgt: ab["lora_B"].abs().max().item() for tgt, ab in state.trainable.items()}
+    log(f"LoRA step, full width, backbone cut to {depth} of 42 layers, rank {LORA_RANK}, "
+        f"35,552 keys: {wall:.3f} s wall, " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+        + f"; launches {launches} (expected {expected}); max |lora_B| after the step {b_max}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != expected:
+        raise AssertionError(f"LoRA step launches {launches}, expected {expected}")
+    if not (all(math.isfinite(v) for v in m.values()) and m["gradient_norm_before_clip"] > 0):
+        raise AssertionError(f"LoRA step metrics {m}")
+    if not all(x > 0 for x in b_max.values()):
+        raise AssertionError(f"no gradient reached lora_B: {b_max}")
+
+
+# small training step, flash kernels vs exact attention, bf16: relative loss
+# difference and cosine of the two gradients (an H100 reads 3e-5 and 0.99999)
+TRAIN_LOSS_REL = 1e-3
+TRAIN_GRAD_COSINE = 0.9999
+
+
+def phase_small_train(torch):
+    """Phase 7: a small stack (head dim 64) on the card, one branch-SFT grad
+    step with the flash kernels against the same step with exact attention, on
+    the same weights and prepared tensors."""
+    from videopainter_tpu_torch.config import TransformerConfig, VAEConfig
+    from videopainter_tpu_torch.flagship import build_training
+    from videopainter_tpu_torch.training import (BranchTrainConfig, init_branch_train_state,
+                                                 make_branch_train_step)
+
+    class GradTap:
+        """Stands in for the optimizer: keeps the gradients, changes nothing."""
+        def init(self, params, names=None):
+            return {}
+
+        def update_(self, params, grads, state):
+            self.grads = torch.cat([g.float().flatten() for g in grads])
+            return state
+
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    tcfg = TransformerConfig.tiny(in_channels=32, out_channels=16, attention_head_dim=64,
+                                  sample_height=8, sample_width=12)
+    t = build_training(gen, tcfg=tcfg, vcfg=VAEConfig.tiny(latent_channels=16), frames=9,
+                       height=64, width=96, text_len=5)
+    for lin in t["branch"].branch_blocks:   # non-zero projections: every block gets gradient
+        torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+    res = {}
+    prep = rope = None
+    for flash in (True, False):
+        cfg = BranchTrainConfig(height=64, width=96, mask_add=True, use_flash=flash, remat=True)
+        tap = GradTap()
+        state = init_branch_train_state(t["trainable"], tap)
+        step = make_branch_train_step(t["transformer"], t["branch"], t["vae"], t["scheduler"],
+                                      tap, cfg)
+        if prep is None:
+            prep = step.prepare(t["batch"], gen)
+            rope = step.rope(prep)
+        _, m = step.grad_step(state, *prep, t["batch"]["prompt_embeds"], rope)
+        res[flash] = (float(m["total_loss"]), tap.grads)
+    rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    cos = torch.nn.functional.cosine_similarity(res[True][1], res[False][1], dim=0).item()
+    finite = bool(torch.isfinite(res[True][1]).all())
+    log(f"small training step, flash kernels vs exact attention: loss {res[True][0]:.6f} vs "
+        f"{res[False][0]:.6f} (relative {rel:.2e}, limit {TRAIN_LOSS_REL}), gradient cosine "
+        f"{cos:.6f} (min {TRAIN_GRAD_COSINE}), finite {finite}")
+    if not (finite and rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COSINE):
+        raise AssertionError("small training step: the kernel path disagrees with exact "
+                             "attention")
+
+
 def psnr_db(a, b):
     mse = (a - b).square().mean().item()
     return 10 * math.log10(4.0 / max(mse, 1e-20))  # range [-1, 1]
@@ -581,8 +914,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
 
-    t = time.perf_counter()
-    sources = (("flash_fwd.cu", fa._SIGNATURES), ("flash_int8_fwd.cu", fa8._SIGNATURES))
+    t_all = t = time.perf_counter()
+    sources = ((fa._SOURCE, fa._SIGNATURES), (fa._BWD_SOURCE, fa._BWD_SIGNATURES),
+               ("flash_int8_fwd.cu", fa8._SIGNATURES))
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
         for fut in [pool.submit(kernels.load, *src) for src in sources]:
             fut.result()
@@ -592,12 +926,25 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {src}: {line.strip()}")
 
+    def free():   # a finished phase's models and buffers go back to the allocator
+        gc.collect()
+        torch.cuda.empty_cache()
+
     stats = phase_kernels(torch, fa)
+    b2, b3 = phase_bwd_kernels(torch, fa)
     b4, b5 = phase_int8_kernels(torch, fa, fa8)
+    free()
     launches = phase_pipeline(torch, kernels)
+    free()
     anyl_launches = phase_anyl_int8(torch, kernels)
+    free()
+    train_launches = phase_train(torch, kernels)
+    free()
+    phase_train_lora(torch, kernels)
+    free()
     phase_small(torch)
     phase_small_anyl(torch)
+    phase_small_train(torch)
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -608,11 +955,22 @@ def main() -> int:
     if tool_launches["flash_int8_uniform_fwd"] < 1:
         raise AssertionError(f"the int8 tool launched no uniform kernel: {tool_launches}")
 
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_all:.1f} s, "
+        "the kernels' build included")
     int8_src = "videopainter_tpu_torch/csrc/flash_int8_fwd.cu"
     rows = [{"name": "flash_fwd", "route": "cuda",
              "source": "videopainter_tpu_torch/csrc/flash_fwd.cu",
              "replaces": "videopainter_tpu/ops/flash_attention.py:68",
-             "launches": launches["flash_fwd"], **stats},
+             "launches": launches["flash_fwd"],
+             "launches_training": train_launches["flash_fwd"], **stats},
+            {"name": "flash_dq", "route": "cuda",
+             "source": "videopainter_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "videopainter_tpu/ops/flash_attention.py:164",
+             "launches": train_launches["flash_dq"], **b2},
+            {"name": "flash_dkv", "route": "cuda",
+             "source": "videopainter_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "videopainter_tpu/ops/flash_attention.py:194",
+             "launches": train_launches["flash_dkv"], **b3},
             {"name": "flash_int8_fwd", "route": "cuda", "source": int8_src,
              "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
              "launches": anyl_launches["flash_int8_fwd"], **b4},

@@ -247,8 +247,15 @@ def test_quantize_weight_matches_jax(jax_linear):
 def test_int8_linear_raises_under_autograd_and_matmul_is_exact(jax_linear):
     _, qp, x = jax_linear
     m = port_linear(qp)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        m(T(x).requires_grad_())
+    # under autograd the linear no longer raises: it is a straight-through
+    # estimator, dx = (g * kscale) @ W_q as a product of bf16 values (exact
+    # parity with the JAX package: tests/test_torch_training.py)
+    xt = T(x).requires_grad_()
+    y = m(xt)
+    g = torch.ones_like(y)
+    (dx,) = torch.autograd.grad(y, xt, g)
+    want = (g * m.kscale).to(torch.bfloat16).float() @ m.weight_q.float()
+    np.testing.assert_allclose(dx.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     rng = np.random.default_rng(6)
     a = rng.integers(-127, 128, (5, 2000)).astype(np.int8)
     w = rng.integers(-127, 128, (7, 2000)).astype(np.int8)

@@ -5,8 +5,9 @@ Each source under `csrc/` is compiled at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 into a shared library with a plain C interface, loaded through `ctypes`
-(`flash_fwd.cu`: the bf16 flash forward; `flash_int8_fwd.cu`: the int8 flash
-forward and its uniform-scale precursor).
+(`flash_fwd.cu`: the bf16 flash forward; `flash_bwd.cu`: its backward, the dQ
+and the dK/dV kernel; `flash_int8_fwd.cu`: the int8 flash forward and its
+uniform-scale precursor).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source and flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing is built or loaded
@@ -34,8 +35,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_int8_fwd": 0,
-                            "flash_int8_uniform_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                            "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS

@@ -9,6 +9,7 @@ two packages through `to_dict` / `from_dict`. Plain frozen dataclasses.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -207,3 +208,8 @@ class SchedulerConfig:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+
+def load_config(path: str, cls):
+    """An HF `config.json` as `cls` (unknown keys ignored)."""
+    with open(path) as f:
+        return cls.from_dict(json.load(f))

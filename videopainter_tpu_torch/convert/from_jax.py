@@ -17,6 +17,12 @@ both packages compute with the same weights.
  - LoRA tree (lora_A, lora_B [L, ...])      -> tensors (`lora_params`)
  - captured cross-window state (array, compressed, or the int8 dict) -> tensors
    (`captured_state`)
+
+Training state crosses the same way (a branch tree through
+`branch_state_dict` into the branch module, a LoRA tree through
+`lora_params`); `to_jax_layout` goes back: the port's parameters, gradients
+or updated weights, named as in a state dict, into the JAX tree's layout, so
+a test can compare them leaf by leaf.
 """
 
 from __future__ import annotations
@@ -140,6 +146,44 @@ def lora_params(tree: dict) -> Dict[str, Dict[str, torch.Tensor]]:
     -> the same tree as tensors (the port keeps the stacked layout)."""
     return {tgt: {k: _t(v) for k, v in ab.items() if k in ("lora_A", "lora_B")}
             for tgt, ab in tree.items()}
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, fn) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def to_jax_layout(named: Dict[str, torch.Tensor], like: dict) -> dict:
+    """The inverse of `branch_state_dict` on values:
+    `named` holds tensors under the port's state-dict names (parameters,
+    gradients, updated weights); the result is a numpy tree with the layout of
+    the JAX tree `like`. The conversions only permute elements, so the inverse
+    is read off by converting a tree of element indices."""
+    offset = 0
+
+    def index(x):
+        nonlocal offset
+        x = np.asarray(x)
+        idx = np.arange(offset, offset + x.size, dtype=np.int64).reshape(x.shape)
+        offset += x.size
+        return idx
+
+    index_tree = _map_leaves(like, index)
+    flat = np.zeros(offset, dtype=np.float64)
+    seen = np.zeros(offset, dtype=bool)
+    for name, idx in branch_state_dict(index_tree).items():
+        if name not in named:
+            raise KeyError(f"to_jax_layout: no tensor named {name!r}")
+        pos = idx.numpy().ravel()
+        flat[pos] = named[name].detach().to(torch.float64).cpu().numpy().ravel()
+        seen[pos] = True
+    if not seen.all():
+        raise ValueError(f"to_jax_layout: {int((~seen).sum())} elements of the tree have no "
+                         "counterpart in the state dict")
+    return _map_leaves(index_tree, lambda idx: flat[idx].astype(np.float32))
 
 
 def captured_state(hs):

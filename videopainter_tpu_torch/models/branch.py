@@ -18,7 +18,7 @@ from torch import nn
 
 from ..config import BranchConfig, TransformerConfig
 from ..ops.basic import Linear
-from .dit import CogVideoXTransformer3D, _CogVideoXBase, run_block_calibrated
+from .dit import CogVideoXTransformer3D, _CogVideoXBase, checkpointed, run_block_calibrated
 
 
 class CogVideoXBranch(_CogVideoXBase):
@@ -76,10 +76,14 @@ class CogVideoXBranch(_CogVideoXBase):
         use_flash: Union[bool, str] = False,
         calibrate: bool = False,   # also return the [L, n_sites] activation amax of the
                                    # dynamic int8 linears (quantize.calibrate_ascales)
+        remat: bool = False,       # checkpoint every block (training)
     ):
         """Returns stacked branch features [num_layers, B, S_vid, D] (with
         calibrate, the pair (features, amax)). cfg.wo_text runs video-only
         blocks: the text is embedded but takes no part in the blocks."""
+        if calibrate and remat:
+            raise ValueError("calibrate=True requires remat=False (a checkpoint reruns the "
+                             "block and records its amaxes twice)")
         x = torch.cat([hidden_states, branch_cond], dim=-1)
         emb, h, enc_h, _ = self._embed(x, encoder_hidden_states, timestep)
         wo_text = self.cfg.wo_text
@@ -89,6 +93,12 @@ class CogVideoXBranch(_CogVideoXBase):
             if calibrate:
                 (h, e), amax = run_block_calibrated(blk, *args, use_flash=use_flash)
                 amaxes.append(amax)
+            elif wo_text and remat:   # a checkpoint returns tensors: drop the None
+                h, e = checkpointed(lambda h_, blk=blk: blk(
+                    h_, None, emb, rope, use_flash=use_flash)[0])(h), None
+            elif remat:
+                h, e = checkpointed(lambda h_, e_, blk=blk: blk(
+                    h_, e_, emb, rope, use_flash=use_flash))(h, enc_h)
             else:
                 h, e = blk(*args, use_flash=use_flash)
             enc_h = enc_h if wo_text else e

@@ -18,6 +18,15 @@ dict {"values", "scales"} dequantized per layer), captures of the per-layer
 states (`return_hidden_states`, `capture_indices`, `capture_quant`) and the
 activation-amax calibration pass of the int8 linears. The self-guidance swap
 belongs to the variants slice.
+
+Training: `remat=True` runs every block under a non-reentrant
+`torch.utils.checkpoint`, so only block inputs stay resident and each block
+that a gradient reaches is recomputed in the backward (the branch injection
+runs between the checkpoints); `remat_chunk=k` additionally
+puts groups of k blocks under an outer checkpoint (group inputs stay, one
+group's block inputs at a time, one more forward of each group). The JAX
+package's scan-specific parts of that code (per-layer dynamic gather,
+optimization barrier) have no counterpart in a Python loop over modules.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Any, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TransformerConfig
 from ..ops.attention import Attention
@@ -142,6 +152,15 @@ def run_block_calibrated(block: nn.Module, *args, **kwargs):
     return out, torch.stack(taps)
 
 
+def checkpointed(fn):
+    """`fn` under a non-reentrant checkpoint: its intermediates are dropped
+    after the forward and recomputed in the backward. Randomness is not
+    replayed: nothing on this path draws any."""
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def quantize_capture(ys: torch.Tensor) -> dict:
     """Per-token symmetric int8 of captured states (scale = max|x| / 127 over
     D, floored): {"values": int8 [..., D], "scales": fp32 [...]}."""
@@ -245,6 +264,8 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         use_flash: Union[bool, str] = False,
         calibrate: bool = False,   # collect per-layer per-site activation amax of the
                                    # dynamic int8 linears (quantize.calibrate_ascales)
+        remat: bool = False,       # checkpoint every block (training)
+        remat_chunk: Optional[int] = None,   # blocks per outer checkpointed group
     ) -> TransformerOutput:
         cfg = self.cfg
         if (prev_hidden_indices is not None or isinstance(prev_hidden_states, dict)) \
@@ -253,12 +274,13 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                 "compressed prev_hidden_states (prev_hidden_indices) are only valid on the "
                 "ID-resample path: the base processor's prev-clip blend reads the full "
                 "sequence of prev keys and values")
-        if calibrate and (return_hidden_states or prev_hidden_states is not None
+        if calibrate and (return_hidden_states or remat or prev_hidden_states is not None
                           or id_pool_resample):
-            # the variant paths add to_k / to_v calls, which would scramble the
-            # site order of the recorded amaxes
+            # the variant paths add to_k / to_v calls and a checkpoint reruns the
+            # block, both of which would scramble the site order of the
+            # recorded amaxes
             raise ValueError("calibrate=True requires the plain forward path "
-                             "(no captures or variants)")
+                             "(no captures, variants, or remat)")
         if prev_hidden_states is not None and prev_clip_weight is None:
             # the attention variant keys on both; without a weight the prev
             # states would be silently ignored
@@ -312,28 +334,67 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                 prev_h = full[:, :s_joint]
             return prev_h
 
-        captures, amaxes = [], []
-        for i, block in enumerate(self.transformer_blocks):
-            kw = dict(use_flash=use_flash, resample_mask=attn_resample_mask,
-                      prev_hidden_states=prev_for_layer(i), prev_clip_weight=prev_clip_weight,
-                      prev_resample_mask=prev_rs)
-            if calibrate:
-                (h, enc_h), amax = run_block_calibrated(block, h, enc_h, emb, rope, **kw)
-                amaxes.append(amax)
-            else:
-                h, enc_h = block(h, enc_h, emb, rope, **kw)
-            if branch_block_samples is not None:
-                injected = h + branch_block_samples[bidx[i]].to(h.dtype) * float(bvalid[i])
-                h = injected if gate_mask is None else torch.where(gate_mask, h, injected)
-            if return_hidden_states:
-                ys = torch.cat([enc_h, h], dim=1)
-                if capture_indices is not None:
-                    # compressed capture: keep only the masked-region tokens (pad
-                    # slots gather a clamped in-range token; the consumer's scatter
-                    # drops them)
-                    idx = capture_indices.long().clamp(0, s_joint - 1)
-                    ys = torch.gather(ys, 1, idx[..., None].expand(-1, -1, ys.shape[-1]))
-                captures.append(quantize_capture(ys) if capture_quant else ys)
+        def block_kw(i: int) -> dict:
+            return dict(use_flash=use_flash, resample_mask=attn_resample_mask,
+                        prev_hidden_states=prev_for_layer(i), prev_clip_weight=prev_clip_weight,
+                        prev_resample_mask=prev_rs)
+
+        def run_block(i: int, h, enc_h):
+            return self.transformer_blocks[i](h, enc_h, emb, rope, **block_kw(i))
+
+        def inject(i: int, h):
+            """Block i's branch injection. It stays outside the block's
+            checkpoint: it keeps nothing but the gate mask for the backward,
+            and inside it would make a block whose input needs no gradient
+            (block 0 under branch training) recompute for that mask alone."""
+            if branch_block_samples is None:
+                return h
+            injected = h + branch_block_samples[bidx[i]].to(h.dtype) * float(bvalid[i])
+            return injected if gate_mask is None else torch.where(gate_mask, h, injected)
+
+        def capture(h, enc_h):
+            ys = torch.cat([enc_h, h], dim=1)
+            if capture_indices is not None:
+                # compressed capture: keep only the masked-region tokens (pad
+                # slots gather a clamped in-range token; the consumer's scatter
+                # drops them)
+                idx = capture_indices.long().clamp(0, s_joint - 1)
+                ys = torch.gather(ys, 1, idx[..., None].expand(-1, -1, ys.shape[-1]))
+            return quantize_capture(ys) if capture_quant else ys
+
+        def run_layers(lo: int, hi: int, h, enc_h):
+            """Blocks [lo, hi): (h, enc_h, their captures, their amaxes)."""
+            caps, amaxes = [], []
+            for i in range(lo, hi):
+                if remat:
+                    h, enc_h = checkpointed(lambda a, b, i=i: run_block(i, a, b))(h, enc_h)
+                elif calibrate:
+                    (h, enc_h), amax = run_block_calibrated(
+                        self.transformer_blocks[i], h, enc_h, emb, rope, **block_kw(i))
+                    amaxes.append(amax)
+                else:
+                    h, enc_h = run_block(i, h, enc_h)
+                h = inject(i, h)
+                if return_hidden_states:
+                    caps.append(capture(h, enc_h))
+            return h, enc_h, caps, amaxes
+
+        if remat and remat_chunk and remat_chunk < n_layers:
+            # two-level rematerialization: the last group may be smaller. A
+            # checkpoint returns tensors, so int8 captures cross it flattened.
+            captures, amaxes = [], []
+            for lo in range(0, n_layers, remat_chunk):
+                def group(a, b, lo=lo, hi=min(lo + remat_chunk, n_layers)):
+                    a, b, caps, _ = run_layers(lo, hi, a, b)
+                    if capture_quant:
+                        caps = [c[k] for c in caps for k in ("values", "scales")]
+                    return (a, b, *caps)
+                h, enc_h, *caps = checkpointed(group)(h, enc_h)
+                if capture_quant:
+                    caps = [{"values": v, "scales": sc} for v, sc in zip(caps[::2], caps[1::2])]
+                captures += caps
+        else:
+            h, enc_h, captures, amaxes = run_layers(0, n_layers, h, enc_h)
 
         hs_list = None
         if return_hidden_states:

@@ -67,10 +67,13 @@ def merge_lora(model: nn.Module, lora_params: LoraParams, *, alpha: float, rank:
 
 
 def attach_lora(model: nn.Module, lora_params: LoraParams, *, alpha: float, rank: int,
-                scale: float = 1.0) -> nn.Module:
+                scale: float = 1.0, trainable: bool = False) -> nn.Module:
     """Hang the adapter on `model`'s target linears (plain or int8), in place;
     returns the model. Attach after `quantize_transformer_int8`, which
-    rebuilds the linears."""
+    rebuilds the linears. trainable=True attaches per-layer views of the
+    stacked tensors that stay in their autograd graph (the LoRA train step:
+    gradients reach `lora_params` through the linears' delta); otherwise the
+    adapter is detached (serving)."""
     factor = scale * alpha / rank
     for tgt, ab in lora_params.items():
         for i, block in enumerate(model.transformer_blocks):
@@ -81,7 +84,8 @@ def attach_lora(model: nn.Module, lora_params: LoraParams, *, alpha: float, rank
                                 ("lora_scale", torch.tensor(factor, dtype=torch.float32))):
                 if name in lin._buffers:
                     delattr(lin, name)
-                lin.register_buffer(name, value.detach().to(dev), persistent=False)
+                value = value if trainable and name != "lora_scale" else value.detach()
+                lin.register_buffer(name, value.to(dev), persistent=False)
     return model
 
 

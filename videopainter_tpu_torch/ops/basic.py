@@ -14,10 +14,12 @@ diffusers names (`weight`, `bias`), and a reference state dict loads with
 `kernel_q` dispatch): int8 weights with per-out-channel scales, activations
 quantized per token (dynamic `amax / 127`) or by a static calibrated `ascale`
 that clips at +-127, an exact int32 product (`torch._int_mm` on the card; the
-JAX package leaves this product to XLA too), dequantized in fp32. Forward
-only: it raises under autograd until the straight-through backward is ported
-with training. Both linears add a low-rank `lora` term when one is attached
-(`models/lora.attach_lora`).
+JAX package leaves this product to XLA too), dequantized in fp32. Under
+autograd it is a straight-through estimator (`Int8MatmulSTE`): the quantize
+is treated as the identity, so a frozen int8 backbone passes gradients to
+whatever feeds it; the int8 weights and the scales get none. Both linears add
+a low-rank `lora` term when one is attached (`models/lora.attach_lora`),
+which carries gradients to A and B.
 """
 
 from __future__ import annotations
@@ -100,6 +102,31 @@ def int8_matmul(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq.contiguous(), weight_q.t())[:m]
 
 
+class Int8MatmulSTE(torch.autograd.Function):
+    """y = clip(round(x32 / xs)) @ weight_q^T * xs * kscale with an exact int32
+    product. Backward is the straight-through estimator of the JAX package's
+    `_int8_matmul_ste`: round / clip and the dependence of a dynamic xs on x
+    are treated as the identity, so dx = (g * kscale) @ weight_q as a bf16
+    product with fp32 accumulation; xs, weight_q and kscale get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x32, xs, weight_q, kscale):
+        ctx.save_for_backward(weight_q, kscale)
+        xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
+        acc = int8_matmul(xq.reshape(-1, weight_q.shape[1]), weight_q)
+        return acc.reshape(*x32.shape[:-1], weight_q.shape[0]).float() * xs * kscale
+
+    @staticmethod
+    def backward(ctx, g):
+        weight_q, kscale = ctx.saved_tensors
+        gk = (g * kscale.float()).to(torch.bfloat16)
+        if g.device.type == "cuda":   # bf16 operands, fp32 accumulation, fp32 out
+            dx = torch.matmul(gk, weight_q.to(torch.bfloat16)).float()
+        else:   # the same product of the same bf16 values, summed in fp32
+            dx = torch.matmul(gk.float(), weight_q.float())
+        return dx, None, None, None
+
+
 class Int8Linear(nn.Module):
     """W8A8 linear: `weight_q` int8 [out, in], `kscale` fp32 [out], optional
     `bias`, optional static `ascale` (a scalar buffer; without it the
@@ -117,21 +144,15 @@ class Int8Linear(nn.Module):
         self.calib: Optional[List[torch.Tensor]] = None   # see `calibration`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                "Int8Linear is forward-only: the straight-through backward belongs to "
-                "the training slice; run it under torch.no_grad()")
         x32 = x.float()
         if self.ascale is not None:
             xs = self.ascale.float()
         else:
-            amax = x32.abs().amax(dim=-1, keepdim=True)
+            amax = x32.detach().abs().amax(dim=-1, keepdim=True)   # no grad through amax
             if self.calib is not None:
                 self.calib.append(amax.max())   # global amax, in call order
             xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-        xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
-        acc = int8_matmul(xq.reshape(-1, self.in_features), self.weight_q)
-        y = acc.reshape(*x.shape[:-1], self.out_features).float() * xs * self.kscale
+        y = Int8MatmulSTE.apply(x32, xs, self.weight_q, self.kscale)
         if self.bias is not None:
             y = y + self.bias.float()
         y = y.to(x.dtype)

@@ -156,8 +156,6 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
     dcfg.capture_hidden_states the final step also returns its per-layer
     states. progress_fn(i) is called after step i completes on the host side.
     """
-    if not isinstance(scheduler, CogVideoXDPMScheduler):
-        raise NotImplementedError("only the DPM scheduler is ported so far")
     S = len(timesteps)
     # the scheduler's stride derives from the un-sliced step count; dynamic
     # CFG uses the post-slice count (both as the reference)
@@ -269,12 +267,17 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         if dcfg.do_cfg:
             uncond, text = noise_pred.chunk(2, dim=0)
             noise_pred = uncond + float(cfg_scales[i]) * (text - uncond)
-        if inputs.dpm_noises is not None:
-            sde_noise = inputs.dpm_noises[i]
+        if not isinstance(scheduler, CogVideoXDPMScheduler):
+            # DDIM (the trainer's scheduler, in its validation runs): no SDE noise
+            latents, x0 = scheduler.step(coeffs, i, noise_pred, latents)
         else:
-            sde_noise = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
-                                    device=latents.device)
-        latents, x0 = scheduler.step(coeffs, i, noise_pred, old_x0, latents, noise=sde_noise)
+            if inputs.dpm_noises is not None:
+                sde_noise = inputs.dpm_noises[i]
+            else:
+                sde_noise = torch.randn(latents.shape, generator=generator,
+                                        dtype=torch.float32, device=latents.device)
+            latents, x0 = scheduler.step(coeffs, i, noise_pred, old_x0, latents,
+                                         noise=sde_noise)
         if dcfg.replace_gt:
             dtype = latents.dtype
             src = inputs.video_latents.float()

@@ -79,7 +79,10 @@ def make_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarray
 def _abar_at(alphas_cumprod: np.ndarray, timesteps, ref: torch.Tensor) -> torch.Tensor:
     """float32 abar[t] on ref's device, broadcastable against ref."""
     ab = torch.as_tensor(np.asarray(alphas_cumprod, dtype=np.float32), device=ref.device)
-    t = torch.as_tensor(np.asarray(timesteps), device=ref.device, dtype=torch.long)
+    if torch.is_tensor(timesteps):
+        t = timesteps.to(device=ref.device, dtype=torch.long)
+    else:
+        t = torch.as_tensor(np.asarray(timesteps), device=ref.device, dtype=torch.long)
     abar = ab[t]
     while abar.ndim < ref.ndim:
         abar = abar[..., None]
@@ -92,6 +95,14 @@ def add_noise(alphas_cumprod: np.ndarray, original: torch.Tensor, noise: torch.T
     abar = _abar_at(alphas_cumprod, timesteps, original)
     return (torch.sqrt(abar) * original.float()
             + torch.sqrt(1.0 - abar) * noise.float()).to(original.dtype)
+
+
+def get_velocity(alphas_cumprod: np.ndarray, sample: torch.Tensor, noise: torch.Tensor,
+                 timesteps) -> torch.Tensor:
+    """v = sqrt(abar_t) eps - sqrt(1-abar_t) x_0, in sample's dtype."""
+    abar = _abar_at(alphas_cumprod, timesteps, sample)
+    return (torch.sqrt(abar) * noise.float()
+            - torch.sqrt(1.0 - abar) * sample.float()).to(sample.dtype)
 
 
 def pred_original_sample(prediction_type: str, alpha_prod_t, sample, model_output):
