@@ -5,17 +5,21 @@
 
 Phases (each fails the run loudly, exit code != 0):
  0. build the hand-written kernels from `videopainter_tpu_torch/csrc/` (one
-    nvcc per source, side by side) and print ptxas' report;
+    nvcc per source, side by side), print ptxas' report (registers, spills,
+    setmaxnreg, wgmma serialisation) and the HGMMA count of each wgmma kernel;
  1. hold each kernel against its plain PyTorch version on the card. The bf16
-    flash forward: small ragged shapes, kv_len, the paged mask, the
-    logsumexp, and the flagship shape, where the kernel, its plain version
-    and the PyTorch library call computing the same function are timed. The
-    bf16 flash backward (dQ and dK/dV kernels): ragged shapes, S_q != S_k,
-    kv_len, the paged mask with a whole tile masked, strided head views, a
-    dO the wrapper has to copy, and the two flagship shapes of a training
-    step (17,776 queries with 17,776 and 35,552 keys), timed beside the plain
-    version and the library's backward (SDPA forward + backward minus its
-    forward). The int8 flash forward: ragged, kv_len, paged, twice the keys, with and
+    flash forward (the wgmma kernel, and the mma.sync kernel it replaced):
+    small ragged shapes, kv_len, the paged mask, the logsumexp, TMA edges
+    (S_q in 1 / 17 / 64, S_k in 1 / 65 / 129, B*H = 1), and the flagship
+    shape, where the kernel, its predecessor (in turns: previous, new, new,
+    previous), its plain version and the PyTorch library call computing the
+    same function are timed. The bf16 flash backward (dQ and dK/dV kernels,
+    and the mma.sync dK/dV kernel): ragged shapes, S_q != S_k, kv_len, the
+    paged mask with a whole tile masked, strided head views, a dO the
+    wrapper has to copy, the TMA edges, and the two flagship shapes of a
+    training step (17,776 queries with 17,776 and 35,552 keys), timed beside
+    the predecessors (in turns), the plain version and the library's backward
+    (SDPA forward + backward minus its forward). The int8 flash forward: ragged, kv_len, paged, twice the keys, with and
     without int8 P.V, at quantization blocks 128/128 and the defaults, and
     the two flagship shapes (17,776 queries with 17,776 and 35,552 keys),
     where kernel, quantization prologue and plain version are timed, with the
@@ -53,10 +57,12 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak (NVIDIA data sheet, SXM)
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak
@@ -115,8 +121,25 @@ def flash_err(out, ref):
     return err, FLASH_REL_TOL * ref.abs().max().item()
 
 
+# TMA edges: a box larger than the tensor, a ragged tile of one row past a
+# whole tile, one row; B*H = 1
+TMA_EDGES = [(s_q, s_k) for s_q in (1, 17, 64) for s_k in (1, 65, 129)]
+ONE_KEY_ATOL = 1e-5        # with one key, softmax does not depend on its score: exact
+                           # dQ and dK are 0, the plain version's are rounding noise (5e-7)
+
+
+def in_turns(torch, fns, iters):
+    """Time (previous, new, new, previous) on the same inputs, in turns on one
+    card; returns (mean of the new, mean of the previous) in ms."""
+    old, new = fns
+    t = [cuda_time_ms(f, iters) for f in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
 def phase_kernels(torch, fa):
-    """Phase 1: flash_fwd against flash_attention_reference on the card."""
+    """Phase 1: flash_fwd (csrc/flash_fwd_wgmma.cu) against
+    flash_attention_reference on the card, and against the mma.sync kernel it
+    replaced (csrc/flash_fwd.cu), timed in turns with it."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def qkv(b, h, s_q, s_k, d=64, layout="bshd"):
@@ -133,24 +156,29 @@ def phase_kernels(torch, fa):
              ("paged 2x400, kv_len 333", dict(b=2, h=2, s_q=257, s_k=800),
               dict(kv_len=333, kv_page_len=400)),
              ("with_lse 200x300", dict(b=2, h=2, s_q=200, s_k=300), dict(lse=True))]
+    cases += [(f"TMA edge {s_q}x{s_k}, B*H 1", dict(b=1, h=1, s_q=s_q, s_k=s_k), dict(lse=True))
+              for s_q, s_k in TMA_EDGES]
     worst = 0.0
     for name, shp, kw in cases:
         q, k, v = qkv(**shp)
         lse = kw.pop("lse", False)
-        out, l_k = fa.flash_fwd_cuda(q, k, v, 64 ** -0.5, kw.get("kv_len", k.shape[2]),
-                                     kw.get("kv_page_len"), lse)
         ref, l_r = fa.flash_attention_reference(q, k, v, 64 ** -0.5, with_lse=True, **kw)
-        err, tol = flash_err(out, ref)
-        msg = f"flash_fwd {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
-        if lse:
-            lerr = (l_k - l_r).abs().max().item()
-            msg += f", lse max_abs_err {lerr:.3e} (tol {LSE_TOL})"
-            if not lerr <= LSE_TOL:
+        for label, fn in (("flash_fwd", fa.flash_fwd_cuda),
+                          ("flash_fwd_mma", fa.flash_fwd_mma_cuda)):
+            out, l_k = fn(q, k, v, 64 ** -0.5, kw.get("kv_len", k.shape[2]),
+                          kw.get("kv_page_len"), lse)
+            err, tol = flash_err(out, ref)
+            msg = f"{label} {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+            if lse:
+                lerr = (l_k - l_r).abs().max().item()
+                msg += f", lse max_abs_err {lerr:.3e} (tol {LSE_TOL})"
+                if not lerr <= LSE_TOL:
+                    raise AssertionError(msg)
+            log(msg)
+            if not err <= tol:
                 raise AssertionError(msg)
-        log(msg)
-        if not err <= tol:
-            raise AssertionError(msg)
-        worst = max(worst, err)
+            if label == "flash_fwd":
+                worst = max(worst, err)
 
     # the flagship call as the main path makes it: CFG batch 2 x 48 heads,
     # 226 + 17,550 tokens, d = 64, heads as strided views of [B, S, H, D]
@@ -166,16 +194,23 @@ def phase_kernels(torch, fa):
         raise AssertionError("flash_fwd disagrees with its plain version at the flagship shape")
     worst = max(worst, err)
     del ref
-    ms = cuda_time_ms(lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s, None, False), 10)
+    ms, ms_previous, turns = in_turns(torch, (
+        lambda: fa.flash_fwd_mma_cuda(q, k, v, d ** -0.5, s, None, False),
+        lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s, None, False)), 10)
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v, d ** -0.5), 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_time_ms(lambda: sdpa(q, k, v), 10)
     bound, bound_by = flash_bound_ms(b, h, s, s, d)
-    log(f"flash_fwd flagship: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"sdpa {library_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); "
-        f"{4.0 * b * h * s * s * d / ms / 1e9:.1f} TFLOP/s")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    flop = 4.0 * b * h * s * s * d
+    log(f"flash_fwd flagship: kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound / ms:.1f} % of bound), mma.sync kernel {ms_previous:.3f} ms (in turns: "
+        + ", ".join(f"{x:.3f}" for x in turns) + f"), plain {plain_ms:.3f} ms, sdpa "
+        f"{library_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+    if not ms < ms_previous:
+        raise AssertionError(f"flash_fwd {ms:.3f} ms is not faster than the mma.sync kernel "
+                             f"{ms_previous:.3f} ms")
+    return {"max_abs_err": worst, "ms": ms, "ms_previous": ms_previous, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 def bwd_bound_ms(n_products, b, h, s_q, n_keys, d, n_out_rows):
@@ -213,10 +248,12 @@ def phase_bwd_kernels(torch, fa):
         torch.cuda.synchronize()
         return out, lse, grads
 
-    def compare(name, grads, refs):
+    def compare(name, grads, refs, names=("dq", "dk", "dv"), one_key=False):
         errs = {}
-        for g_name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        for g_name, got, ref in zip(names, grads, refs):
             err, tol = flash_err(got, ref)
+            if one_key and g_name[:2] in ("dq", "dk"):
+                tol = max(tol, ONE_KEY_ATOL)
             finite = bool(torch.isfinite(got).all())
             msg = (f"flash_bwd {name}: {g_name} max_abs_err {err:.3e} (tol {tol:.3e} = "
                    f"2^-6 max|plain|), finite {finite}")
@@ -234,14 +271,22 @@ def phase_bwd_kernels(torch, fa):
              ("paged 3x400, kv_len 130: whole tiles masked", (1, 2, 200, 1200), "bshd", "bhsd",
               dict(kv_len=130, kv_page_len=400)),
              ("keys 2x300, strided dO", (2, 2, 300, 600), "bshd", "bshd", {})]
+    cases += [(f"TMA edge {s_q}x{s_k}, B*H 1", (1, 1, s_q, s_k), "bshd", "bshd", {})
+              for s_q, s_k in TMA_EDGES]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     for name, (b, h, s_q, s_k), layout, do_layout, kw in cases:
         q, k, v = mk(b, h, s_q, layout), mk(b, h, s_k, layout), mk(b, h, s_k, layout)
         dout = mk(b, h, s_q, do_layout)
         out, lse, grads = run(q, k, v, dout, kw)
         refs = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, d ** -0.5, **kw)
-        for g_name, err in compare(name, grads, refs).items():
+        for g_name, err in compare(name, grads, refs, one_key=s_k == 1).items():
             worst[g_name] = max(worst[g_name], err)
+        # the mma.sync dK/dV kernel it replaced, on the same inputs
+        dout_k = dout if fa._kernel_layout_ok(dout) else dout.contiguous()
+        old = fa.flash_dkv_mma_cuda(q, k, v, dout_k, lse, fa.flash_bwd_delta(out, dout_k),
+                                    d ** -0.5, kw.get("kv_len", s_k), kw.get("kv_page_len"))
+        compare(name + ", mma.sync dK/dV", old, refs[1:], names=("dk_mma", "dv_mma"),
+                one_key=s_k == 1)
         if "kv_len" in kw:   # masked keys: their rows of dK and dV are exactly 0
             col = torch.arange(s_k, device="cuda")
             dead = ~fa._kv_valid(col, kw["kv_len"], kw.get("kv_page_len"), s_k)
@@ -268,9 +313,12 @@ def phase_bwd_kernels(torch, fa):
         delta = fa.flash_bwd_delta(out, dout)
         args = (q, k, v, dout, lse, delta, d ** -0.5, s_k, None)
         dq_ms = cuda_time_ms(lambda: fa.flash_dq_cuda(*args), 5)
-        dkv_ms = cuda_time_ms(lambda: fa.flash_dkv_cuda(*args), 5)
+        dkv_ms, dkv_prev, dkv_turns = in_turns(torch, (lambda: fa.flash_dkv_mma_cuda(*args),
+                                                       lambda: fa.flash_dkv_cuda(*args)), 5)
         delta_ms = cuda_time_ms(lambda: fa.flash_bwd_delta(out, dout), 5)
-        fwd_ms = cuda_time_ms(lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None, True), 5)
+        fwd_ms, fwd_prev, fwd_turns = in_turns(torch, (
+            lambda: fa.flash_fwd_mma_cuda(q, k, v, d ** -0.5, s_k, None, True),
+            lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None, True)), 5)
         # the library's backward: forward + backward of SDPA minus its forward
         ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
 
@@ -282,18 +330,26 @@ def phase_bwd_kernels(torch, fa):
         dq_bound, dq_by = bwd_bound_ms(3, b, h, s, s_k, d, s)
         dkv_bound, dkv_by = bwd_bound_ms(4, b, h, s, s_k, d, 2 * s_k)
         fwd_bound, _ = flash_bound_ms(b, h, s, s_k, d)
-        shapes[s_k] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "delta_ms": delta_ms,
-                       "fwd_with_lse_ms": fwd_ms, "plain_ms": plain_ms,
+        shapes[s_k] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms, "dkv_ms_previous": dkv_prev,
+                       "delta_ms": delta_ms, "fwd_with_lse_ms": fwd_ms,
+                       "fwd_with_lse_ms_previous": fwd_prev, "plain_ms": plain_ms,
                        "library_bwd_ms": lib_both - lib_fwd, "library_fwd_ms": lib_fwd,
                        "dq_bound_ms": dq_bound, "dkv_bound_ms": dkv_bound,
                        "fwd_bound_ms": fwd_bound, "dq_by": dq_by, "dkv_by": dkv_by}
         log(f"flash_bwd flagship {s_k} keys: dq {dq_ms:.3f} ms (bound {dq_bound:.3f} ms, "
             f"{dq_by}; {6.0 * b * h * s * s_k * d / dq_ms / 1e9:.1f} TFLOP/s), dkv "
             f"{dkv_ms:.3f} ms (bound {dkv_bound:.3f} ms, {dkv_by}; "
-            f"{8.0 * b * h * s * s_k * d / dkv_ms / 1e9:.1f} TFLOP/s), delta {delta_ms:.3f} ms, "
-            f"plain (dq, dk, dv together) {plain_ms:.1f} ms, SDPA backward (dq, dk, dv "
-            f"together) {lib_both - lib_fwd:.3f} ms; forward with lse {fwd_ms:.3f} ms "
-            f"(bound {fwd_bound:.3f} ms), SDPA forward {lib_fwd:.3f} ms")
+            f"{8.0 * b * h * s * s_k * d / dkv_ms / 1e9:.1f} TFLOP/s; mma.sync dkv "
+            f"{dkv_prev:.3f} ms, in turns " + ", ".join(f"{x:.3f}" for x in dkv_turns)
+            + f"), delta {delta_ms:.3f} ms, plain (dq, dk, dv together) {plain_ms:.1f} ms, "
+            f"SDPA backward (dq, dk, dv together) {lib_both - lib_fwd:.3f} ms; forward with "
+            f"lse {fwd_ms:.3f} ms (bound {fwd_bound:.3f} ms; mma.sync forward {fwd_prev:.3f} "
+            f"ms, in turns " + ", ".join(f"{x:.3f}" for x in fwd_turns)
+            + f"), SDPA forward {lib_fwd:.3f} ms")
+        if not (dkv_ms < dkv_prev and fwd_ms < fwd_prev):
+            raise AssertionError(f"{s_k} keys: a new kernel is not faster than the mma.sync "
+                                 f"kernel it replaced (dkv {dkv_ms:.3f} vs {dkv_prev:.3f}, "
+                                 f"forward with lse {fwd_ms:.3f} vs {fwd_prev:.3f} ms)")
         del q, k, v, dout, out, lse, delta, ql, kl, vl
     main_shape = shapes[s]   # the call each of the branch-SFT step's blocks makes
     common = {"plain_ms": main_shape["plain_ms"], "library_ms": main_shape["library_bwd_ms"],
@@ -303,6 +359,7 @@ def phase_bwd_kernels(torch, fa):
     b2 = {"max_abs_err": worst["dq"], "ms": main_shape["dq_ms"],
           "bound_ms": main_shape["dq_bound_ms"], "bound_by": main_shape["dq_by"], **common}
     b3 = {"max_abs_err": max(worst["dk"], worst["dv"]), "ms": main_shape["dkv_ms"],
+          "ms_previous": main_shape["dkv_ms_previous"],
           "bound_ms": main_shape["dkv_bound_ms"], "bound_by": main_shape["dkv_by"], **common}
     return b2, b3
 
@@ -678,7 +735,7 @@ def phase_train(torch, kernels):
     with_backward = n_branch + n_layers - 1
     expected = {"flash_fwd": n_steps * (n_branch + n_layers + with_backward),
                 "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward,
-                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
+                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0, **{k: 0 for k in OLD_KEYS}}
     enc_per_step = len(enc_s) // n_steps
     for i, (w, m) in enumerate(zip(walls, metrics)):
         enc = sum(enc_s[i * enc_per_step:(i + 1) * enc_per_step])
@@ -739,7 +796,7 @@ def phase_train_lora(torch, kernels):
     # the frozen branch runs without grad (2 forwards); every backbone block
     # holds trainable A / B: forward, recompute and backward each
     expected = {"flash_fwd": 2 + 2 * depth, "flash_dq": depth, "flash_dkv": depth,
-                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
+                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0, **{k: 0 for k in OLD_KEYS}}
     b_max = {tgt: ab["lora_B"].abs().max().item() for tgt, ab in state.trainable.items()}
     log(f"LoRA step, full width, backbone cut to {depth} of 42 layers, rank {LORA_RANK}, "
         f"35,552 keys: {wall:.3f} s wall, " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
@@ -891,6 +948,30 @@ def phase_small(torch):
         raise AssertionError("small pipeline: kernel path disagrees with the exact path")
 
 
+def sass_stats(kernels, sources):
+    """{source: (HGMMA (wgmma) instructions, highest register named)} of each
+    library's SASS."""
+    cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    out = {}
+    for src in sources:
+        sass = subprocess.run([cuobjdump, "-sass", str(kernels._lib_path(src))],
+                              capture_output=True, text=True, timeout=120).stdout
+        ops = [line.split() for line in sass.splitlines()]
+        hgmma = sum(len(o) > 1 and o[0].startswith("/*") and o[1].startswith("HGMMA")
+                    for o in ops)
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", sass)]
+        out[src] = (hgmma, max(regs, default=-1))
+    return out
+
+
+OLD_KEYS = ("flash_fwd_mma", "flash_dkv_mma")   # the mma.sync yardsticks: phase 1 only
+
+
+def check_no_yardstick(launches, phase):
+    if any(launches[k] for k in OLD_KEYS):
+        raise AssertionError(f"{phase} launched a yardstick kernel: {launches}")
+
+
 def main() -> int:
     try:
         import torch
@@ -915,16 +996,21 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t_all = t = time.perf_counter()
-    sources = ((fa._SOURCE, fa._SIGNATURES), (fa._BWD_SOURCE, fa._BWD_SIGNATURES),
-               ("flash_int8_fwd.cu", fa8._SIGNATURES))
+    sources = (*fa.SOURCES, (fa8._SOURCE, fa8._SIGNATURES))
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
         for fut in [pool.submit(kernels.load, *src) for src in sources]:
             fut.result()
     log(f"built {len(sources)} kernel sources in {time.perf_counter() - t:.1f} s")
     for src, text in kernels.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "setmaxnreg",
+                                       "serialized")):
                 log(f"  {src}: {line.strip()}")
+    sass = sass_stats(kernels, (fa._SOURCE, fa._DKV_SOURCE))
+    log("SASS: " + ", ".join(f"{k} {n} HGMMA, highest register R{r}"
+                             for k, (n, r) in sass.items()))
+    if not all(n for n, _ in sass.values()):
+        raise AssertionError(f"a wgmma kernel has no HGMMA instruction: {sass}")
 
     def free():   # a finished phase's models and buffers go back to the allocator
         gc.collect()
@@ -935,16 +1021,22 @@ def main() -> int:
     b4, b5 = phase_int8_kernels(torch, fa, fa8)
     free()
     launches = phase_pipeline(torch, kernels)
+    check_no_yardstick(launches, "phase 2")
     free()
     anyl_launches = phase_anyl_int8(torch, kernels)
+    check_no_yardstick(anyl_launches, "phase 3")
     free()
     train_launches = phase_train(torch, kernels)
     free()
     phase_train_lora(torch, kernels)
     free()
+    kernels.reset_launches()
     phase_small(torch)
     phase_small_anyl(torch)
     phase_small_train(torch)
+    check_no_yardstick(kernels.LAUNCHES, "phases 4 and 7")
+    log(f"launches of phases 4 and 7: {kernels.LAUNCHES}; the mma.sync yardsticks "
+        "launched 0 times after phase 1")
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -959,7 +1051,7 @@ def main() -> int:
         "the kernels' build included")
     int8_src = "videopainter_tpu_torch/csrc/flash_int8_fwd.cu"
     rows = [{"name": "flash_fwd", "route": "cuda",
-             "source": "videopainter_tpu_torch/csrc/flash_fwd.cu",
+             "source": "videopainter_tpu_torch/csrc/flash_fwd_wgmma.cu",
              "replaces": "videopainter_tpu/ops/flash_attention.py:68",
              "launches": launches["flash_fwd"],
              "launches_training": train_launches["flash_fwd"], **stats},
@@ -968,7 +1060,7 @@ def main() -> int:
              "replaces": "videopainter_tpu/ops/flash_attention.py:164",
              "launches": train_launches["flash_dq"], **b2},
             {"name": "flash_dkv", "route": "cuda",
-             "source": "videopainter_tpu_torch/csrc/flash_bwd.cu",
+             "source": "videopainter_tpu_torch/csrc/flash_dkv_wgmma.cu",
              "replaces": "videopainter_tpu/ops/flash_attention.py:194",
              "launches": train_launches["flash_dkv"], **b3},
             {"name": "flash_int8_fwd", "route": "cuda", "source": int8_src,

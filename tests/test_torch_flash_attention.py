@@ -92,19 +92,33 @@ def test_cuda_request_raises_without_a_card():
     assert videopainter_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
+# TMA edges of the wgmma kernel: boxes larger than the tensor, one row past a
+# whole tile, a single row; B*H = 1
+TMA_EDGES = [(s_q, s_k, {}) for s_q in (1, 17, 64) for s_k in (1, 65, 129)]
+
+
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version (bf16 inputs). Tolerance
-    2^-6 of the largest output: two bf16 ulps there, for both sides rounding
-    the output to bf16 and the kernel rounding P to bf16 before P.V."""
+    """The CUDA kernels (the wgmma kernel the wrapper launches and the
+    mma.sync kernel it replaced) against the plain version, bf16 inputs, lse
+    included. Tolerance 2^-6 of the largest output: two bf16 ulps there, for
+    both sides rounding the output to bf16 and the kernel rounding P to bf16
+    before P.V; 1e-3 on the logsumexp (same fp32 scores, another summation
+    order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for s_q, s_k, kw in [(129, 1111, {}), (300, 700, {"kv_len": 513}),
-                         (257, 800, {"kv_len": 333, "kv_page_len": 400})]:
+    cases = [(129, 1111, {}), (300, 700, {"kv_len": 513}),
+             (257, 800, {"kv_len": 333, "kv_page_len": 400})]
+    for s_q, s_k, kw in cases + TMA_EDGES:
+        b_h = (1, 1) if (s_q, s_k, kw) in TMA_EDGES else (2, 2)
         q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
-                   for x in make_qkv(s_q, s_k, d=64))
+                   for x in make_qkv(s_q, s_k, b=b_h[0], h=b_h[1], d=64))
         out = tfa.flash_attention(q, k, v, **kw)
-        ref = tfa.flash_attention_reference(q, k, v, **kw)
+        ref, ref_lse = tfa.flash_attention_reference(q, k, v, with_lse=True, **kw)
         ref = ref.float()
         tol = 2.0 ** -6 * ref.abs().max().item()
         torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+        for fn in (tfa.flash_fwd_cuda, tfa.flash_fwd_mma_cuda):
+            o, lse = fn(q, k, v, 64 ** -0.5, kw.get("kv_len", s_k), kw.get("kv_page_len"), True)
+            torch.testing.assert_close(o.float(), ref, rtol=0, atol=tol)
+            torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-3)

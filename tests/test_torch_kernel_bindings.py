@@ -1,0 +1,120 @@
+"""The ctypes bindings of the port's CUDA kernels against their C entry points.
+
+Each `extern "C"` function of `videopainter_tpu_torch/csrc/*.cu` is parsed
+from its source and held against the `argtypes` its wrapper gives ctypes:
+the same number of arguments and the same kinds (pointer -> c_void_p,
+`long long` -> c_longlong, `int` -> c_int, `float` -> c_float). A wrong kind
+would silently cut a pointer or a stride at the call, and no test without a
+card could see it otherwise. Plain file parsing: no build, no card.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+from videopainter_tpu_torch import _kernels
+from videopainter_tpu_torch.ops import flash_attention as fa
+from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
+
+_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
+
+
+def c_kind(param: str):
+    """The ctypes type a C parameter declaration must be bound with."""
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return ctypes.c_void_p
+    words = decl.split()[:-1]          # drop the parameter's name
+    kind = " ".join(w for w in words if w != "const")
+    return {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float}[kind]
+
+
+def parse_entries(text: str):
+    """{function: [ctypes kind of each parameter]} of a source's C entries."""
+    return {m.group(1): [c_kind(p) for p in m.group(2).split(",")]
+            for m in _ENTRY.finditer(text)}
+
+
+def bindings():
+    """{(source, function): argtypes} of every wrapper module."""
+    out = {}
+    for source, signatures in (*fa.SOURCES, (fa8._SOURCE, fa8._SIGNATURES)):
+        for name, argtypes in signatures.items():
+            out[(source, name)] = argtypes
+    return out
+
+
+def entries():
+    out = {}
+    for path in sorted(_kernels.CSRC.glob("*.cu")):
+        for name, kinds in parse_entries(path.read_text()).items():
+            out[(path.name, name)] = kinds
+    return out
+
+
+_ENTRIES = entries()
+
+
+def test_every_entry_point_is_bound_and_every_binding_exists():
+    assert len(_ENTRIES) >= 7
+    assert set(bindings()) == set(_ENTRIES)
+
+
+@pytest.mark.parametrize("key", sorted(_ENTRIES), ids=lambda k: f"{k[0]}::{k[1]}")
+def test_argtypes_match_the_c_entry_point(key):
+    want = _ENTRIES[key]
+    got = bindings()[key]
+    assert len(got) == len(want), f"{key}: {len(got)} argtypes for {len(want)} parameters"
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g is w, f"{key} argument {i}: bound as {g.__name__}, declared {w.__name__}"
+
+
+def test_parser_reads_each_kind():
+    text = '''// comment
+extern "C" int vp_x(const void* a, void* b, int n,
+                    long long s, float f, void* stream) {
+  return 0;
+}
+int helper(int a) { return a; }'''
+    assert parse_entries(text) == {"vp_x": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_longlong, ctypes.c_float,
+                                            ctypes.c_void_p]}
+    with pytest.raises(KeyError):
+        c_kind("double x")
+
+
+def test_new_kernels_keep_the_entry_points_of_the_kernels_they_replace():
+    """flash_fwd_wgmma.cu / flash_dkv_wgmma.cu declare exactly the parameters
+    of the mma.sync entries (flash_fwd.cu, flash_bwd.cu's vp_flash_dkv), so a
+    wrapper switches kernels by switching libraries."""
+    assert _ENTRIES[("flash_fwd_wgmma.cu", "vp_flash_fwd")] == _ENTRIES[("flash_fwd.cu",
+                                                                          "vp_flash_fwd")]
+    assert _ENTRIES[("flash_dkv_wgmma.cu", "vp_flash_dkv")] == _ENTRIES[("flash_bwd.cu",
+                                                                          "vp_flash_dkv")]
+    for src in ("flash_fwd_wgmma.cu", "flash_dkv_wgmma.cu"):
+        text = (_kernels.CSRC / src).read_text()
+        assert '#include "hopper.cuh"' in text and "wgmma_" in text
+    header = (Path(_kernels.CSRC) / "hopper.cuh").read_text()
+    assert "setmaxnreg" in header and "cp.async.bulk.tensor.4d" in header
+
+
+@pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"), (-2, "tensor map"),
+                                      (-3, "setmaxnreg"), (700, "CUDA error 700")])
+def test_launch_error_codes_raise_with_their_meaning(rc, match):
+    with pytest.raises(RuntimeError, match=match):
+        _kernels.check(rc, "kernel")
+    _kernels.check(0, "kernel")
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edit of csrc/*.cuh rebuilds every source that includes it."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    first = _kernels._lib_path("k.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _kernels._lib_path("k.cu") != first
+    assert first.name.startswith("libk_")

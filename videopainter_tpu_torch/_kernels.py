@@ -4,14 +4,18 @@ Each source under `csrc/` is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-into a shared library with a plain C interface, loaded through `ctypes`
-(`flash_fwd.cu`: the bf16 flash forward; `flash_bwd.cu`: its backward, the dQ
-and the dK/dV kernel; `flash_int8_fwd.cu`: the int8 flash forward and its
-uniform-scale precursor).
+into a shared library with a plain C interface, loaded through `ctypes`:
+`flash_fwd_wgmma.cu`, the bf16 flash forward, and `flash_dkv_wgmma.cu`, its
+dK/dV backward (warp-specialised Hopper kernels: TMA, mbarriers, wgmma; their
+common PTX in `hopper.cuh`); `flash_bwd.cu`, the dQ backward; and
+`flash_int8_fwd.cu`, the int8 flash forward and its uniform-scale precursor.
+`flash_fwd.cu` and `flash_bwd.cu`'s dK/dV entry are the first, mma.sync
+versions of the forward and dK/dV kernels, kept as a yardstick that
+chip_smoke.py times against the new ones; no path of the port calls them.
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
-in `.gitignore`), named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built or loaded
-when a module is imported.
+in `.gitignore`), named by a hash of the source, the shared headers and the
+flags, so an edited source rebuilds and an unchanged one is reused. Nothing
+is built or loaded when a module is imported.
 
 `LAUNCHES` holds one plain integer per kernel; a wrapper adds one where it
 launches its kernel and nowhere else.
@@ -36,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                            "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0}
+                            "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
+                            "flash_fwd_mma": 0, "flash_dkv_mma": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS
@@ -62,7 +67,8 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{h}.so"
 
 
@@ -97,7 +103,16 @@ def load(source: str, signatures: Dict[str, List]) -> ctypes.CDLL:
         return lib
 
 
+# negative return codes of the C entry points (hopper.cuh's ERR_*)
+_ENTRY_ERRORS = {-1: "cuTensorMapEncodeTiled not found in libcuda",
+                 -2: "cuTensorMapEncodeTiled refused a TMA tensor map (strides or alignment)",
+                 -3: "the kernel's register count cannot feed setmaxnreg"}
+
+
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch."""
+    """Raise on a non-zero cudaError_t (or negative entry-point code)
+    returned by a launch."""
+    if rc < 0:
+        raise RuntimeError(f"{what}: {_ENTRY_ERRORS.get(rc, 'entry point error')} ({rc})")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,280 @@
+// Hopper (sm_90a) building blocks of the warp-specialised flash kernels
+// (flash_fwd_wgmma.cu, flash_dkv_wgmma.cu): mbarriers, TMA tensor loads,
+// wgmma descriptors and instructions, named barriers, register hand-over, and
+// the host-side tensor-map encoder. Inline PTX only.
+//
+// Shared-memory operands are written by TMA with the 128-byte swizzle. A bf16
+// row of d = 64 is exactly 128 bytes, one swizzle row, so a tile of R rows is
+// R / 8 swizzle atoms of 8 rows x 128 bytes (1024 bytes), and every tile starts
+// on a 1024-byte boundary. In wgmma descriptors:
+//  - K-major operand (the contraction runs along the 64 contiguous elements
+//    of a row): stride byte offset 1024 between 8-row groups; one k-step of 16
+//    elements adds 32 bytes to the start address inside the atom;
+//  - MN-major operand (the contraction runs along the rows; the transpose bit
+//    is set): 8 consecutive rows of 128 bytes form one atom, the stride byte
+//    offset (1024) steps to the next 8 rows, and one k-step of 16 rows adds
+//    2048 bytes. The N extent is 64, one atom wide, so the leading byte offset
+//    is never stepped; it is set to 1024 as well.
+
+#pragma once
+
+#include <cuda.h>          // CUtensorMap and its enums (types only: libcuda is found at run time)
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <dlfcn.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of the given parity has completed. A wait that can
+// never complete (a pipeline fault) traps after 2^26 polls, so the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// ---- TMA ----
+
+// A box of the 4-D map at coordinates (c0, c1, c2, c3) into shared memory;
+// completion is counted in bytes on `bar`. Rows past the tensor read as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- warp specialisation ----
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// ---- wgmma ----
+
+// A shared-memory matrix descriptor with the 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+       | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+       | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pins registers at this point of the program: an accumulator is not read
+// before the wait that completes it, nor written after the wgmma reading it.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], both from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B from shared memory MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// ---- elementwise ----
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- host: tensor maps ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the CUDA runtime has loaded
+// (no link flag, no dependence on the toolkit's runtime-API version).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr) fn = reinterpret_cast<EncodeTiledFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// Error codes of the C entry points besides cudaError_t (which is >= 0).
+constexpr int ERR_NO_ENCODER = -1;    // cuTensorMapEncodeTiled not found
+constexpr int ERR_TENSOR_MAP = -2;    // cuTensorMapEncodeTiled refused a tensor map
+constexpr int ERR_REGISTERS = -3;     // the binary's register count cannot feed setmaxnreg
+
+// A 4-D map over a bf16 operand addressed [B, H, S, 64] by element strides
+// (sb, sh, ss; the last dim contiguous): dims (64, S, H, B) innermost first,
+// byte strides, a box of 64 x `rows`, the 128-byte swizzle, zeros out of bounds.
+inline int make_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
+                    long long sh, long long ss, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  // a dim of extent 1 is never stepped; give it a stride the encoder accepts
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1 || strides[i] == 0) strides[i] = 128;
+  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// The register hand-over needs the whole file at launch: `threads` x the
+// binary's count must cover the producer's and the consumers' shares, or
+// setmaxnreg.inc would wait forever.
+template <typename Kernel>
+inline int check_registers(Kernel kernel, int threads, int producer_threads, int producer_regs,
+                           int consumer_regs) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long need = static_cast<long long>(producer_threads) * producer_regs +
+                         static_cast<long long>(threads - producer_threads) * consumer_regs;
+  return static_cast<long long>(a.numRegs) * threads >= need ? 0 : ERR_REGISTERS;
+}
+
+}  // namespace hopper
