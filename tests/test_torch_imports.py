@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res["bad"] == [], f"the port imported {res['bad']}"
     assert res["launches"] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
-                               "flash_fwd_mma": 0, "flash_dkv_mma": 0}
+                               "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
+                               "flash_int8_fwd_mma": 0}
     assert res["libs"] == []
     for name in ("quantize", "models.lora", "ops.flash_attention_int8",
                  "pipelines.inpaint_anyl", "tools.bench_int8_attn", "schedulers.ddim",

@@ -33,8 +33,8 @@ from videopainter_tpu_torch.models import CogVideoXBranch, CogVideoXTransformer3
 from videopainter_tpu_torch.ops.basic import (Int8Linear, Linear, calibration, int8_matmul,
                                               quantize_linear_int8, quantize_weight_int8)
 from videopainter_tpu_torch.ops.flash_attention_int8 import (
-    flash_attention_int8, flash_attention_int8_reference, int8_flash_uniform,
-    int8_flash_uniform_reference, quantize_qkv)
+    flash_attention_int8, flash_attention_int8_reference, flash_int8_fwd_cuda,
+    flash_int8_fwd_mma_cuda, int8_flash_uniform, int8_flash_uniform_reference, quantize_qkv)
 from videopainter_tpu_torch.pipelines.common import prepare_rope
 
 torch.set_num_threads(2)
@@ -117,6 +117,23 @@ def test_int8_flash_cpu_wrapper_is_the_reference_and_checks_arguments():
         flash_attention_int8(q, k, v, kv_page_len=130)
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention_int8(q, k, v, kv_len=261)
+
+
+@pytest.mark.parametrize("blk_k", [64, 192])
+def test_int8_kernel_wrappers_refuse_blocks_their_tiles_do_not_divide(blk_k):
+    """The wgmma kernel's tiles (128 rows, 128 keys) must divide the
+    quantization blocks; the mma.sync yardstick takes 64-key multiples. Both
+    check before they look for a card."""
+    q, k, v = map(T, qkv(130, 260))
+    qq = quantize_qkv(q, k, v, blk_q=128, blk_k=blk_k, int8_pv=False)
+    with pytest.raises(ValueError, match="128 keys"):
+        flash_int8_fwd_cuda(qq, 0.125, 260, None, 128, blk_k, False)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flash_int8_fwd_mma_cuda(qq, 0.125, 260, None, 128, blk_k, False)
+    with pytest.raises(ValueError, match="128 rows"):
+        flash_int8_fwd_mma_cuda(qq, 0.125, 260, None, 64, blk_k, False)
 
 
 def test_quantize_qkv_blocks_and_scales():
@@ -457,17 +474,25 @@ def test_load_ascales_reads_the_repository_file(tmp_path):
 
 @pytest.mark.cuda
 def test_int8_flash_kernel_matches_reference_on_the_card():
-    """The CUDA kernel has no CPU mode: on a card, hold it to its plain version
-    (`int8`: 2^-6 of the largest output, two bf16 ulps; `int8pv`: 3 % relative
-    L1, the P-rounding noise between tile and block running maxima)."""
+    """The CUDA kernels have no CPU mode: on a card, hold the wgmma kernel the
+    wrapper launches and the mma.sync kernel it replaced (the yardstick) to
+    their plain version (`int8`: 2^-6 of the largest output, two bf16 ulps;
+    `int8pv`: 3 % relative L1, the P-rounding noise between tile and block
+    running maxima), at a ragged kv_len and at a TMA edge (17 x 65)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
-    q, k, v = (T(a).cuda().to(torch.bfloat16) for a in qkv(300, 700))
-    for pv in (False, True):
-        out = flash_attention_int8(q, k, v, blk_q=128, blk_k=128, int8_pv=pv, kv_len=513).float()
-        ref = flash_attention_int8_reference(q, k, v, blk_q=128, blk_k=128, int8_pv=pv,
-                                             kv_len=513).float()
-        if pv:
-            assert (out - ref).abs().mean() <= 0.03 * ref.abs().mean()
-        else:
-            assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    for s_q, s_k, kv_len in ((300, 700, 513), (17, 65, 65)):
+        q, k, v = (T(a).cuda().to(torch.bfloat16) for a in qkv(s_q, s_k))
+        for pv in (False, True):
+            ref = flash_attention_int8_reference(q, k, v, blk_q=128, blk_k=128, int8_pv=pv,
+                                                 kv_len=kv_len).float()
+            qq = quantize_qkv(q, k, v, blk_q=128, blk_k=128, int8_pv=pv)
+            outs = (flash_attention_int8(q, k, v, blk_q=128, blk_k=128, int8_pv=pv,
+                                         kv_len=kv_len),
+                    flash_int8_fwd_mma_cuda(qq, 64 ** -0.5, kv_len, None, 128, 128, pv))
+            for out in outs:
+                out = out.float()
+                if pv:
+                    assert (out - ref).abs().mean() <= 0.03 * ref.abs().mean()
+                else:
+                    assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()

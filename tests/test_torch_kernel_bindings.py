@@ -41,7 +41,7 @@ def parse_entries(text: str):
 def bindings():
     """{(source, function): argtypes} of every wrapper module."""
     out = {}
-    for source, signatures in (*fa.SOURCES, (fa8._SOURCE, fa8._SIGNATURES)):
+    for source, signatures in (*fa.SOURCES, *fa8.SOURCES):
         for name, argtypes in signatures.items():
             out[(source, name)] = argtypes
     return out
@@ -59,7 +59,7 @@ _ENTRIES = entries()
 
 
 def test_every_entry_point_is_bound_and_every_binding_exists():
-    assert len(_ENTRIES) >= 7
+    assert len(_ENTRIES) >= 9
     assert set(bindings()) == set(_ENTRIES)
 
 
@@ -86,19 +86,28 @@ int helper(int a) { return a; }'''
         c_kind("double x")
 
 
+# (wgmma source, mma.sync source it replaced, entry point)
+REPLACED = [("flash_fwd_wgmma.cu", "flash_fwd.cu", "vp_flash_fwd"),
+            ("flash_dkv_wgmma.cu", "flash_bwd.cu", "vp_flash_dkv"),
+            ("flash_dq_wgmma.cu", "flash_bwd.cu", "vp_flash_dq"),
+            ("flash_int8_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_fwd")]
+
+
 def test_new_kernels_keep_the_entry_points_of_the_kernels_they_replace():
-    """flash_fwd_wgmma.cu / flash_dkv_wgmma.cu declare exactly the parameters
-    of the mma.sync entries (flash_fwd.cu, flash_bwd.cu's vp_flash_dkv), so a
-    wrapper switches kernels by switching libraries."""
-    assert _ENTRIES[("flash_fwd_wgmma.cu", "vp_flash_fwd")] == _ENTRIES[("flash_fwd.cu",
-                                                                          "vp_flash_fwd")]
-    assert _ENTRIES[("flash_dkv_wgmma.cu", "vp_flash_dkv")] == _ENTRIES[("flash_bwd.cu",
-                                                                          "vp_flash_dkv")]
-    for src in ("flash_fwd_wgmma.cu", "flash_dkv_wgmma.cu"):
-        text = (_kernels.CSRC / src).read_text()
+    """flash_fwd_wgmma.cu / flash_dkv_wgmma.cu / flash_dq_wgmma.cu /
+    flash_int8_wgmma.cu declare exactly the parameters of the mma.sync
+    entries (flash_fwd.cu, flash_bwd.cu's vp_flash_dkv and vp_flash_dq,
+    flash_int8_fwd.cu's vp_flash_int8_fwd), so a wrapper switches kernels by
+    switching libraries."""
+    for new, old, entry in REPLACED:
+        assert _ENTRIES[(new, entry)] == _ENTRIES[(old, entry)]
+        text = (_kernels.CSRC / new).read_text()
         assert '#include "hopper.cuh"' in text and "wgmma_" in text
+        # the waits trap and the entry refuses a register count setmaxnreg cannot feed
+        assert "mbar_wait" in text and "check_registers" in text
     header = (Path(_kernels.CSRC) / "hopper.cuh").read_text()
     assert "setmaxnreg" in header and "cp.async.bulk.tensor.4d" in header
+    assert "__trap()" in header and "ERR_REGISTERS" in header
 
 
 @pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"), (-2, "tensor map"),

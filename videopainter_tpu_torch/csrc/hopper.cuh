@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the warp-specialised flash kernels
-// (flash_fwd_wgmma.cu, flash_dkv_wgmma.cu): mbarriers, TMA tensor loads,
-// wgmma descriptors and instructions, named barriers, register hand-over, and
-// the host-side tensor-map encoder. Inline PTX only.
+// (flash_fwd_wgmma.cu, flash_dkv_wgmma.cu, flash_dq_wgmma.cu,
+// flash_int8_wgmma.cu): mbarriers, TMA tensor loads, wgmma descriptors and
+// instructions (bf16 and s8), named barriers, register hand-over, and the
+// host-side tensor-map encoder. Inline PTX only.
 //
-// Shared-memory operands are written by TMA with the 128-byte swizzle. A bf16
+// bf16 shared-memory operands are written by TMA with the 128-byte swizzle. A bf16
 // row of d = 64 is exactly 128 bytes, one swizzle row, so a tile of R rows is
 // R / 8 swizzle atoms of 8 rows x 128 bytes (1024 bytes), and every tile starts
 // on a 1024-byte boundary. In wgmma descriptors:
@@ -15,6 +16,11 @@
 //    offset (1024) steps to the next 8 rows, and one k-step of 16 rows adds
 //    2048 bytes. The N extent is 64, one atom wide, so the leading byte offset
 //    is never stepped; it is set to 1024 as well.
+// int8 operands (flash_int8_wgmma.cu): an int8 row of d = 64 is 64 bytes, so
+// int8 Q and K tiles take the 64-byte swizzle: an atom of 8 rows x 64 bytes
+// (512 bytes), descriptor layout type 2, stride byte offset 512; one k-step
+// of 32 elements adds 32 bytes to the start address, as in the bf16 case. s8
+// wgmma takes K-major operands only (no transpose bit).
 
 #pragma once
 
@@ -100,6 +106,16 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
+// The or of `flag` over the n threads that meet at named barrier `id`
+__device__ __forceinline__ bool bar_any(bool flag, int id, int n) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r) : "r"(static_cast<uint32_t>(flag)), "r"(id), "r"(n) : "memory");
+  return r != 0;
+}
+
 // ---- wgmma ----
 
 // A shared-memory matrix descriptor with the 128-byte swizzle.
@@ -108,6 +124,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uin
        | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
        | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
        | (static_cast<uint64_t>(1) << 62);
+}
+
+// A shared-memory matrix descriptor with the 64-byte swizzle (layout type 2).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+       | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+       | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -129,6 +153,12 @@ template <int N>
 __device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 template <int M, int N>
@@ -202,6 +232,53 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], s8 operands from shared memory
+// (K-major), s32 accumulator. s8 wgmma has no scale or transpose operands.
+__device__ __forceinline__ void wgmma_ss_m64n128_s8(uint32_t (&d)[64], uint64_t a, uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64], s8: A from registers (the m16n8k32
+// s8 A fragment of each warp's 16 rows: 4 consecutive k per register), B from
+// shared memory (K-major), s32 accumulator
+__device__ __forceinline__ void wgmma_rs_m64n64_s8(uint32_t (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 
 // ---- elementwise ----
 
@@ -240,27 +317,39 @@ constexpr int ERR_NO_ENCODER = -1;    // cuTensorMapEncodeTiled not found
 constexpr int ERR_TENSOR_MAP = -2;    // cuTensorMapEncodeTiled refused a tensor map
 constexpr int ERR_REGISTERS = -3;     // the binary's register count cannot feed setmaxnreg
 
+// A 4-D map over an operand addressed [B, H, S, inner] by element strides
+// (sb, sh, ss; the inner dim contiguous) with elements of `elem_bytes` bytes:
+// dims (inner, S, H, B) innermost first, byte strides, a box of
+// box_inner x `rows`, the given swizzle, zeros out of bounds.
+inline int make_map_t(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                      int elem_bytes, int inner, int B, int H, int S, long long sb,
+                      long long sh, long long ss, int box_inner, int rows,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem_bytes,
+                           static_cast<cuuint64_t>(sh) * elem_bytes,
+                           static_cast<cuuint64_t>(sb) * elem_bytes};
+  // a dim of extent 1 is never stepped; give it a stride the encoder accepts
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1 || strides[i] == 0) strides[i] = 128;
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, estr,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
 // A 4-D map over a bf16 operand addressed [B, H, S, 64] by element strides
 // (sb, sh, ss; the last dim contiguous): dims (64, S, H, B) innermost first,
 // byte strides, a box of 64 x `rows`, the 128-byte swizzle, zeros out of bounds.
 inline int make_map(CUtensorMap* map, const void* base, int B, int H, int S, long long sb,
                     long long sh, long long ss, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return ERR_NO_ENCODER;
-  cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
-                           static_cast<cuuint64_t>(sb) * 2};
-  // a dim of extent 1 is never stepped; give it a stride the encoder accepts
-  for (int i = 0; i < 3; ++i)
-    if (dims[i + 1] == 1 || strides[i] == 0) strides[i] = 128;
-  cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+  return make_map_t(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64, B, H, S, sb, sh, ss,
+                    64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The register hand-over needs the whole file at launch: `threads` x the

@@ -1,14 +1,14 @@
 """Flash attention: the hand-written Hopper kernels and their plain versions.
 
 Counterpart of `videopainter_tpu/ops/flash_attention.py`. The TPU forward
-kernel `_flash_kernel` becomes `csrc/flash_fwd_wgmma.cu`, the backward kernel
-`_flash_dkv_kernel` becomes `csrc/flash_dkv_wgmma.cu` (warp-specialised
-Hopper kernels: a TMA producer warp, an mbarrier ring, wgmma products) and
-`_flash_dq_kernel` becomes `vp_flash_dq` in `csrc/flash_bwd.cu` (mma.sync);
-see the notes in each source for its design and what bounds it. The first,
-mma.sync versions of the forward and dK/dV kernels (`csrc/flash_fwd.cu`,
-`vp_flash_dkv` in `csrc/flash_bwd.cu`) stay reachable through
-`flash_fwd_mma_cuda` / `flash_dkv_mma_cuda` only, as a yardstick that
+kernel `_flash_kernel` becomes `csrc/flash_fwd_wgmma.cu`, the backward kernels
+`_flash_dq_kernel` and `_flash_dkv_kernel` become `csrc/flash_dq_wgmma.cu`
+and `csrc/flash_dkv_wgmma.cu` (warp-specialised Hopper kernels: a TMA
+producer warp, an mbarrier ring, wgmma products); see the notes in each
+source for its design and what bounds it. The first, mma.sync versions of
+the three kernels (`csrc/flash_fwd.cu`; `vp_flash_dq` and `vp_flash_dkv` in
+`csrc/flash_bwd.cu`) stay reachable through `flash_fwd_mma_cuda` /
+`flash_dq_mma_cuda` / `flash_dkv_mma_cuda` only, as a yardstick that
 chip_smoke.py times against the new ones; no path of the port calls them.
 `flash_attention_reference` is the forward in plain PyTorch: an online
 softmax over key chunks in float32 with the same key masks and logsumexp;
@@ -48,14 +48,16 @@ _SIGNATURES = {"vp_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
 _DKV_SIGNATURE = [*([_P] * 8), _I, _I, _I, _I, *([_L] * 18), ctypes.c_float, _I, _I, _P]
 _DKV_SOURCE = "flash_dkv_wgmma.cu"
 _DKV_SIGNATURES = {"vp_flash_dkv": _DKV_SIGNATURE}
-_BWD_SOURCE = "flash_bwd.cu"   # dQ; and the mma.sync dK/dV kernel (yardstick only)
-_BWD_SIGNATURES = {
-    "vp_flash_dq": [*([_P] * 7), _I, _I, _I, _I, *([_L] * 15), ctypes.c_float, _I, _I, _P],
-    "vp_flash_dkv": _DKV_SIGNATURE}
+_DQ_SIGNATURE = [*([_P] * 7), _I, _I, _I, _I, *([_L] * 15), ctypes.c_float, _I, _I, _P]
+_DQ_SOURCE = "flash_dq_wgmma.cu"
+_DQ_SIGNATURES = {"vp_flash_dq": _DQ_SIGNATURE}
+_BWD_SOURCE = "flash_bwd.cu"   # the mma.sync dQ and dK/dV kernels (yardsticks only)
+_BWD_SIGNATURES = {"vp_flash_dq": _DQ_SIGNATURE, "vp_flash_dkv": _DKV_SIGNATURE}
 _MMA_SOURCE = "flash_fwd.cu"   # the mma.sync forward (yardstick only), same entry point
 # every (source, signatures) the port builds, as chip_smoke.py builds them
 SOURCES = ((_SOURCE, _SIGNATURES), (_DKV_SOURCE, _DKV_SIGNATURES),
-           (_BWD_SOURCE, _BWD_SIGNATURES), (_MMA_SOURCE, _SIGNATURES))
+           (_DQ_SOURCE, _DQ_SIGNATURES), (_BWD_SOURCE, _BWD_SIGNATURES),
+           (_MMA_SOURCE, _SIGNATURES))
 HEAD_DIMS = (64,)
 
 
@@ -251,19 +253,33 @@ def _new_bshd(b, s, h, d, like):
     return torch.empty((b, s, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def flash_dq_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
-                  kv_page_len: Optional[int]) -> torch.Tensor:
-    """Launch the dQ kernel of csrc/flash_bwd.cu on the current stream."""
+def _launch_dq(source, signatures, key, q, k, v, dout, lse, delta, scale, kv_len,
+               kv_page_len):
     b, h, s_q, s_k, d, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
     dq = _new_bshd(b, s_q, h, d, q)
-    lib = _kernels.load(_BWD_SOURCE, _BWD_SIGNATURES)
+    lib = _kernels.load(source, signatures)
     with torch.cuda.device(q.device):
         rc = lib.vp_flash_dq(*ptrs, dq.data_ptr(), b, h, s_q, s_k, *strides,
                              *dq.stride()[:3], float(scale), kv_len, kv_page_len or 0,
                              torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "flash_dq")
-    _kernels.LAUNCHES["flash_dq"] += 1
+    _kernels.check(rc, key)
+    _kernels.LAUNCHES[key] += 1
     return dq
+
+
+def flash_dq_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
+                  kv_page_len: Optional[int]) -> torch.Tensor:
+    """Launch the dQ kernel of csrc/flash_dq_wgmma.cu on the current stream."""
+    return _launch_dq(_DQ_SOURCE, _DQ_SIGNATURES, "flash_dq", q, k, v, dout, lse, delta,
+                      scale, kv_len, kv_page_len)
+
+
+def flash_dq_mma_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
+                      kv_page_len: Optional[int]) -> torch.Tensor:
+    """The first, mma.sync dQ kernel (`vp_flash_dq` of csrc/flash_bwd.cu), same
+    contract as `flash_dq_cuda`: a yardstick for chip_smoke.py, counted apart."""
+    return _launch_dq(_BWD_SOURCE, _BWD_SIGNATURES, "flash_dq_mma", q, k, v, dout, lse, delta,
+                      scale, kv_len, kv_page_len)
 
 
 def _launch_dkv(source, signatures, key, q, k, v, dout, lse, delta, scale, kv_len,
