@@ -5,7 +5,7 @@
 
 Phases (each fails the run loudly, exit code != 0):
  0. build the hand-written kernels from `videopainter_tpu_torch/csrc/` (one
-    nvcc per source, all seven side by side), print ptxas' report
+    nvcc per source, all eight side by side), print ptxas' report
     (registers, spills, setmaxnreg, wgmma serialisation), the HGMMA (bf16)
     and IGMMA (int8) wgmma counts of each wgmma kernel, and the I2F / F2I
     conversions of each int8 library, in all and inside its key loop;
@@ -29,18 +29,27 @@ Phases (each fails the run loudly, exit code != 0):
     flagship shapes (17,776 queries with 17,776 and 35,552 keys), where the
     kernel and its predecessor (in turns, both modes), the quantization
     prologue and the plain version are timed, with the bf16 kernel and SDPA
-    on the same inputs. Its uniform-scale precursor: one small and the
-    17,776 shape;
- 2. the single-clip path at full CogVideoX-5b-I2V width: the flagship
+    on the same inputs. Its uniform-scale precursor (the Hopper kernel and
+    the mma.sync kernel it replaced), in both modes: a masked tail, a third
+    tile that raises every row's max, scores at the extreme 64 * 127^2, and
+    the int8 tool's call [96, 17,776, 64], timed in turns against the
+    mma.sync kernel and against the SageAttention kernel with uniform scale
+    tables;
+ 2. the single-clip path at full CogVideoX-5b-I2V width from a prompt: T5-
+    v1.1-XXL at its published width (seeded random weights, a word-hash
+    tokenizer) encodes it and the empty negative prompt, then the flagship
     dual-stream inpaint pipeline (42-layer DiT, 2-layer branch, default VAE)
     with seeded random bf16 weights, on a 49x480x720 clip, CFG 6 with dynamic
     CFG, replace_gt, mask_add, use_flash, 2 DPM steps, then the VAE decode;
     the launch counts are zeroed just before the call and read just after;
+    the same call given the embeddings must give the same video;
  3. the any-length path at the same width in its int8 serving mode: merged
     rank-256 adapter, W8A8 block projections, int8 flash attention with ID
     resampling (twice the keys), compressed int8 capture; 81 frames in 2
-    windows of 49, 2 DPM steps per window, one VAE decode; counts zeroed
-    before and read after;
+    windows of 49, 2 DPM steps per window, each window's final frames
+    decoded by the streaming decoder (caches spilled to host memory), held
+    against the one-shot decode of the same latents; counts zeroed before
+    and read after;
  4. both pipelines at a small size on the card: the bf16 kernel path against
     the exact attention path (single clip and any-length), and the int8
     kernel path against the same pipeline on the int8 kernel's plain version;
@@ -400,8 +409,8 @@ def rel_l1(a, b):
 
 
 def phase_int8_kernels(torch, fa, fa8):
-    """Phase 1, int8: flash_int8_fwd and its uniform precursor against their
-    plain versions on the card. Returns the two rows' numbers."""
+    """Phase 1, int8: flash_int8_fwd against its plain version on the card.
+    Returns its row's numbers."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def mk(b, h, s, d=64):  # heads split from a [B, S, H*D] projection by a view
@@ -530,63 +539,218 @@ def phase_int8_kernels(torch, fa, fa8):
         shapes[s_k] = row
         del q, k, v
 
-    # the uniform-scale precursor: [N, S, 64] int8 operands
-    def uniform_case(n, s_len, kv_len):
-        qi, ki, vi = (torch.randint(-127, 128, (n, s_len, d), generator=gen, device="cuda",
-                                    dtype=torch.int8) for _ in range(3))
-        vb = torch.randn((n, s_len, d), generator=gen, device="cuda").to(torch.bfloat16)
-        deq = 3.0 / (127 * 127)   # scores of a few units, as quantized N(0,1) data give
-        res = {}
-        for pv, v in ((False, vb), (True, vi)):
-            out = fa8.int8_flash_uniform(qi, ki, v, d ** -0.5, deq, kv_len, int8_pv=pv)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = fa8.int8_flash_uniform_reference(qi, ki, v, d ** -0.5, deq, kv_len, int8_pv=pv)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err, tol = flash_err(out, ref)
-            rel = rel_l1(out, ref)
-            mode = "int8pv" if pv else "int8"
-            msg = (f"flash_int8_uniform_fwd [{n}, {s_len}, {d}] kv_len {kv_len} {mode}: "
-                   f"max_abs_err {err:.3e} (tol {tol:.3e}), rel_l1 {rel:.4f} "
-                   f"(limit {INT8PV_REL_L1})")
-            log(msg)
-            if not (bool(torch.isfinite(out).all())
-                    and (rel <= INT8PV_REL_L1 if pv else err <= tol)):
-                raise AssertionError(msg)
-            ms = cuda_time_ms(lambda: fa8.int8_flash_uniform(qi, ki, v, d ** -0.5, deq, kv_len,
-                                                             int8_pv=pv), 5)
-            res[mode] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
-        return res
-
-    uniform_case(6, 1000, 901)
-    uni = uniform_case(b * h, s, s)
-    ub, uby = int8_bound_ms(b * h, s, s, d, False)
-    log(f"flash_int8_uniform_fwd [{b * h}, {s}, {d}]: int8 {uni['int8']['ms']:.3f} ms, int8pv "
-        f"{uni['int8pv']['ms']:.3f} ms, plain {uni['int8']['plain_ms']:.1f} ms, bound "
-        f"{ub:.3f} ms ({uby})")
     main_shape = shapes[2 * s]["int8"]   # the call the DiT's 42 layers make
     b4 = {"max_abs_err": worst, "ms": main_shape["ms"],
           "ms_previous": main_shape["ms_previous"], "plain_ms": main_shape["plain_ms"],
           "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
           "library_ms": None, "shape": f"[{b}x{h}, {s} q, {2 * s} keys, {d}] int8",
           "by_shape": {str(k): v for k, v in shapes.items()}}
-    b5 = {"max_abs_err": uni["int8"]["max_abs_err"], "ms": uni["int8"]["ms"],
-          "plain_ms": uni["int8"]["plain_ms"], "bound_ms": ub, "bound_by": uby,
-          "library_ms": None, "shape": f"[{b * h}, {s}, {d}] int8",
-          "int8pv_ms": uni["int8pv"]["ms"]}
-    return b4, b5
+    return b4
+
+
+UNIFORM_PV_REL_L1 = 0.017   # B5's int8 P.V mode against its plain version: the kernel
+                            # rounds P * 127 against each 128-key tile's running max, the
+                            # plain version (as the TPU kernel) against each 2048-key block's
+UNIFORM_QK_VS_MMA = 0.6     # target: int8-qk at most this share of the mma.sync kernel's time
+
+
+def phase_uniform_kernels(torch, fa8):
+    """Phase 1, the uniform-scale int8 kernel (csrc/flash_int8_uniform_wgmma.cu)
+    against its plain version in both modes: a masked tail of S not a multiple
+    of 128, a third tile that raises every row's max by about 16 (log2 units,
+    the bf16 mode's fallback), scores at the extreme |s| = 64 * 127^2, and
+    the tool's shape [96, 17,776, 64], where it is timed in turns against the
+    mma.sync kernel it replaced and against the SageAttention kernel (B4) on
+    the same int8 operands with uniform scale tables. Returns its row."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d = 64
+    sm = d ** -0.5
+
+    def per_tensor(x):   # the tool's quantization: one scale max|x| / 127
+        sc = x.abs().max().item() / 127.0
+        return torch.round(x / sc).to(torch.int8), sc
+
+    def operands(n, s_len, q_shift=None, k_rows=None):
+        q = torch.randn((n, s_len, d), generator=gen, device="cuda")
+        k = torch.randn((n, s_len, d), generator=gen, device="cuda") + 0.7
+        v = torch.randn((n, s_len, d), generator=gen, device="cuda")
+        if q_shift is not None:
+            q += q_shift
+            k[:, k_rows] += 10 * q_shift
+        (qi, sq), (ki, sk), (vi, _) = per_tensor(q), per_tensor(k), per_tensor(v)
+        return qi, ki, v.to(torch.bfloat16), vi, sq * sk
+
+    def check(name, qi, ki, vb, vi, deq, kv_len, timed=False):
+        res = {}
+        for pv, v in ((False, vb), (True, vi)):
+            mode = "int8-qk-pv" if pv else "int8-qk"
+            out = fa8.int8_flash_uniform(qi, ki, v, sm, deq, kv_len, int8_pv=pv)
+            old = fa8.int8_flash_uniform_mma_cuda(qi, ki, v, sm, deq, kv_len, int8_pv=pv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = fa8.int8_flash_uniform_reference(qi, ki, v, sm, deq, kv_len, int8_pv=pv)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for label, got in (("flash_int8_uniform_fwd", out), ("flash_int8_uniform_mma", old)):
+                err, tol = flash_err(got, ref)
+                finite = bool(torch.isfinite(got).all())
+                msg = (f"{label} {name} kv_len {kv_len} {mode}: max_abs_err {err:.3e} "
+                       f"(tol {tol:.3e})")
+                ok = err <= tol
+                if pv:
+                    rel = rel_l1(got, ref)
+                    # exact attention: the fp32 softmax and fp32 P.V on the same integers
+                    ex = fa8.int8_flash_uniform_reference(qi, ki, vi.float(), sm, deq, kv_len)
+                    r_k, r_p = rel_l1(got, ex), rel_l1(ref, ex)
+                    msg = (f"{label} {name} kv_len {kv_len} {mode}: rel_l1 {rel:.4f} (limit "
+                           f"{UNIFORM_PV_REL_L1}); vs exact: kernel {r_k:.4f}, plain {r_p:.4f}")
+                    # the mma.sync kernel rounds against 64-key tiles: the looser int8pv limits
+                    ok = (rel <= UNIFORM_PV_REL_L1 and r_k <= r_p if label[-3:] == "fwd"
+                          else rel <= INT8PV_REL_L1 and r_k <= INT8PV_VS_EXACT * r_p)
+                    del ex
+                log(msg + f", finite {finite}")
+                if not (ok and finite):
+                    raise AssertionError(msg)
+                if label[-3:] == "fwd":
+                    res[mode] = {"max_abs_err": err, "plain_ms": plain_ms}
+        return res
+
+    worst = 0.0
+    # a masked tail: S not a multiple of 128, kv_len inside the last tile but one
+    r = check("[6, 1000, 64]", *operands(6, 1000), kv_len=901)
+    worst = max(worst, r["int8-qk"]["max_abs_err"])
+    # keys 256..265 (the third 128-key tile) raise every row's max by about 16 in
+    # log2 units: the bf16 mode's softmax without a max pass must fall back there
+    c = torch.randn((d,), generator=gen, device="cuda")
+    c = 3 * c / c.norm()
+    r = check("third tile raises the max", *operands(2, 700, c, slice(256, 266)), kv_len=700)
+    worst = max(worst, r["int8-qk"]["max_abs_err"])
+    # the extreme magnitude: rows of +-127 against keys of +-127 along the same
+    # signs, so scores reach +-64 * 127^2 = +-1,032,256 (the shifted floats'
+    # range) and f * s spans about 68 in log2 units
+    sign = torch.where(torch.rand((d,), generator=gen, device="cuda") < 0.5, -1, 1)
+    qi = torch.randint(-127, 128, (2, 500, d), generator=gen, device="cuda", dtype=torch.int8)
+    ki = torch.randint(-127, 128, (2, 500, d), generator=gen, device="cuda", dtype=torch.int8)
+    qi[:, ::2] = (127 * sign).to(torch.int8)
+    ki[:, 3::7] = (127 * sign).to(torch.int8)
+    ki[:, 5::7] = (-127 * sign).to(torch.int8)
+    vi = torch.randint(-127, 128, (2, 500, d), generator=gen, device="cuda", dtype=torch.int8)
+    vb = (vi.float() / 127).to(torch.bfloat16)
+    s_max = (qi[0, 0].int() * ki[0, 3].int()).sum().item()
+    log(f"extreme case: largest score {s_max} (64 * 127^2 = {64 * 127 ** 2})")
+    if s_max != 64 * 127 ** 2:
+        raise AssertionError("the extreme case does not reach 64 * 127^2")
+    r = check("extreme scores", qi, ki, vb, vi, 3.0 / 127 ** 2, kv_len=500)
+    worst = max(worst, r["int8-qk"]["max_abs_err"])
+
+    # the tool's call: 96 batch-heads x 17,776 tokens, its operands (N(0, 0.25)
+    # in bf16, quantized per tensor by the tool's own function)
+    from videopainter_tpu_torch.tools.bench_int8_attn import quantize_per_tensor
+    n, s = 96, 17776
+    q, k, vb = (torch.randn((n, s, d), generator=gen, device="cuda").mul_(0.5)
+                .to(torch.bfloat16) for _ in range(3))
+    (qi, sq), (ki, sk), (vi, _) = map(quantize_per_tensor, (q, k, vb))
+    deq = sq * sk
+    del q, k
+    flag = check(f"[{n}, {s}, {d}]", qi, ki, vb, vi, deq, kv_len=s)
+    worst = max(worst, flag["int8-qk"]["max_abs_err"])
+    row = {}
+    for pv, v in ((False, vb), (True, vi)):
+        mode = "int8-qk-pv" if pv else "int8-qk"
+        ms, ms_prev, turns = in_turns(torch, (
+            lambda: fa8.int8_flash_uniform_mma_cuda(qi, ki, v, sm, deq, s, int8_pv=pv),
+            lambda: fa8.int8_flash_uniform(qi, ki, v, sm, deq, s, int8_pv=pv)), 10)
+        # B4 on the same operands, its scale tables filled uniformly (sq = 1,
+        # sk = deq, sv = 1): what the one-scale specialisation buys
+        nb = -(-s // 2048)
+        qq = fa8.QuantizedQKV(qi[None], ki[None], v[None],
+                              torch.ones((1, n, -(-s // 512)), device="cuda"),
+                              torch.full((1, n, nb), deq, device="cuda"),
+                              torch.ones((1, n, nb), device="cuda") if pv else None)
+        ms_b5, ms_b4, b4_turns = in_turns(torch, (
+            lambda: fa8.flash_int8_fwd_cuda(qq, sm, s, None, 512, 2048, pv),
+            lambda: fa8.int8_flash_uniform(qi, ki, v, sm, deq, s, int8_pv=pv)), 10)
+        b4_out = fa8.flash_int8_fwd_cuda(qq, sm, s, None, 512, 2048, pv)
+        b5_out = fa8.int8_flash_uniform(qi, ki, v, sm, deq, s, int8_pv=pv)
+        same = rel_l1(b5_out, b4_out)
+        del qq, b4_out, b5_out
+        bound, by = int8_bound_ms(n, s, s, d, pv)
+        row[mode] = {"ms": ms, "ms_previous": ms_prev, "b4_uniform_ms": ms_b4,
+                     "ms_beside_b4": ms_b5, "plain_ms": flag[mode]["plain_ms"],
+                     "bound_ms": bound, "bound_by": by}
+        log(f"flash_int8_uniform_fwd [{n}, {s}, {d}] {mode}: kernel {ms:.3f} ms "
+            f"({4.0 * n * s * s * d / ms / 1e9:.1f} TOP/s, {100 * bound / ms:.1f} % of bound "
+            f"{bound:.3f} ms, {by}), mma.sync kernel {ms_prev:.3f} ms (in turns: "
+            + ", ".join(f"{x:.3f}" for x in turns) + f"; {ms / ms_prev:.3f}x); B4 with "
+            f"uniform tables {ms_b4:.3f} ms against {ms_b5:.3f} (in turns: "
+            + ", ".join(f"{x:.3f}" for x in b4_turns) + f"; outputs differ by rel_l1 "
+            f"{same:.2e}); plain {flag[mode]['plain_ms']:.1f} ms")
+        if not ms < ms_prev:
+            raise AssertionError(f"flash_int8_uniform_fwd {mode}: {ms:.3f} ms is not faster "
+                                 f"than the mma.sync kernel's {ms_prev:.3f} ms")
+    qk = row["int8-qk"]
+    log(f"flash_int8_uniform_fwd targets: int8-qk {qk['ms'] / qk['ms_previous']:.3f}x the "
+        f"mma.sync kernel (target <= {UNIFORM_QK_VS_MMA}), {qk['ms_beside_b4']:.3f} ms against "
+        f"B4's {qk['b4_uniform_ms']:.3f} (target: no slower); int8-qk-pv "
+        f"{row['int8-qk-pv']['ms_beside_b4']:.3f} ms against B4's "
+        f"{row['int8-qk-pv']['b4_uniform_ms']:.3f}")
+    return {"max_abs_err": worst, "ms": qk["ms"], "ms_previous": qk["ms_previous"],
+            "plain_ms": qk["plain_ms"], "bound_ms": qk["bound_ms"], "bound_by": qk["bound_by"],
+            "library_ms": None, "shape": f"[{n}, {s}, {d}] int8", "by_mode": row}
+
+
+def timed_calls(torch, fn, bucket):
+    """`fn` with each call's wall time (synchronised) appended to `bucket`."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        bucket.append(time.perf_counter() - s0)
+        return r
+    return run
 
 
 def phase_pipeline(torch, kernels):
-    """Phase 2: the full-width flagship pipeline; returns the launch counts."""
+    """Phase 2: the full-width flagship pipeline driven by a prompt, encoded
+    by T5-v1.1-XXL at its published width; then the same call given those
+    embeddings, which must give the same video bit for bit. Returns the
+    launch counts of the prompt-driven run."""
     from videopainter_tpu_torch.config import TransformerConfig, VAEConfig
-    from videopainter_tpu_torch.flagship import FLAGSHIP_CALL, build_pipeline, random_clip
+    from videopainter_tpu_torch.flagship import (FLAGSHIP_CALL, build_pipeline,
+                                                 build_text_encoder, random_clip)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     t0 = time.perf_counter()
+    te = build_text_encoder(4321)
+    torch.cuda.synchronize()
+    t5_params = sum(p.numel() for p in te.model.parameters())
+    t5_bytes = sum(p.numel() * p.element_size() for p in te.model.parameters())
+    log(f"T5-v1.1-XXL: {te.model.config.num_layers} layers, d_model {te.model.config.d_model}, "
+        f"{te.model.config.num_heads} heads, d_ff {te.model.config.d_ff}; {t5_params / 1e9:.3f} "
+        f"B parameters, {t5_bytes / 1e9:.3f} GB bf16, built in {time.perf_counter() - t0:.1f} s")
+    prompt = ("a white swan gliding across a calm lake at sunrise, mist over the water, "
+              "reeds along the shore")
+    enc_ms = []
+    for text in (prompt, "", prompt, "", prompt, ""):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        emb = te.encode(text)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - s0) * 1e3)
+    pos, neg = te.encode_with_negative(prompt)
+    log(f"T5 encode at {te.max_length} tokens: " + ", ".join(f"{x:.2f}" for x in enc_ms)
+        + f" ms (prompt, empty prompt, in turns; the first call's includes the libraries' "
+        f"set-up); embeddings {tuple(emb.shape)} {emb.dtype}, finite "
+        f"{bool(torch.isfinite(pos).all() and torch.isfinite(neg).all())}, |prompt| rms "
+        f"{pos.float().square().mean().sqrt().item():.4f}")
+    if not (torch.isfinite(pos).all() and torch.isfinite(neg).all()) or torch.equal(pos, neg):
+        raise AssertionError("T5 embeddings are not finite, or the prompt's equal the empty one's")
+
+    t0 = time.perf_counter()
     tcfg = TransformerConfig.cogvideox_5b_i2v()
     pipe = build_pipeline(gen, tcfg=tcfg, branch_layers=2, vcfg=VAEConfig())
+    pipe.text_encoder = te
     vae = pipe.vae
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (pipe.transformer, pipe.branch, vae)
@@ -594,65 +758,86 @@ def phase_pipeline(torch, kernels):
     log(f"full width: {tcfg.num_layers}-layer DiT, 2-layer branch, "
         f"{tcfg.num_attention_heads}x{tcfg.attention_head_dim} heads, VAE "
         f"{VAEConfig().block_out_channels}; {n_params / 1e9:.3f} B params bf16, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        f"built in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident with T5")
     f, hgt, wid = 49, 480, 720
     clip = random_clip(gen, frames=f, height=hgt, width=wid)
+    del clip["prompt_embeds"], clip["negative_prompt_embeds"]
 
     stamps = {}
-    enc_s, dec_s = [], []
-
-    def timed(fn, bucket):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            s = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            bucket.append(time.perf_counter() - s)
-            return r
-        return run
-
-    vae.encode = timed(vae.encode, enc_s)
-    vae.decode = timed(vae.decode, dec_s)
+    enc_s, dec_s, t5_s = [], [], []
+    vae.encode = timed_calls(torch, vae.encode, enc_s)
+    vae.decode = timed_calls(torch, vae.decode, dec_s)
+    te.encode = timed_calls(torch, te.encode, t5_s)
 
     def progress(i, n):
         torch.cuda.synchronize()
         stamps[i] = time.perf_counter()
 
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    start = time.perf_counter()
-    out = pipe(**clip, num_inference_steps=2, generator=gen, output_type="pt",
-               progress_fn=progress, **FLAGSHIP_CALL)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - start
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the two runs must pick the same algorithms
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        gen.manual_seed(99)
+        start = time.perf_counter()
+        out = pipe(**clip, prompt=prompt, negative_prompt="", num_inference_steps=2,
+                   generator=gen, output_type="pt", progress_fn=progress, **FLAGSHIP_CALL)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - start
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        gen.manual_seed(99)
+        given = pipe(**clip, prompt_embeds=pos, negative_prompt_embeds=neg,
+                     num_inference_steps=2, generator=gen, output_type="pt", **FLAGSHIP_CALL)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
 
     expected = (tcfg.num_layers + 2) * 2
     shape_ok = tuple(out.shape) == (1, f, hgt, wid, 3)
     finite = bool(torch.isfinite(out).all())
-    denoise_start = start + sum(enc_s)
+    same = torch.equal(out, given)
+    denoise_start = start + sum(enc_s[:len(enc_s) // 2]) + sum(t5_s[:2])
     steps = [stamps[1] - denoise_start, stamps[2] - stamps[1]]
-    log(f"pipeline: out {tuple(out.shape)} finite {finite}; flash_fwd launches "
-        f"{launches['flash_fwd']} (expected {expected} = 44 layers x 2 steps)")
-    log(f"pipeline wall times: VAE encode {sum(enc_s):.3f} s ({len(enc_s)} calls: "
-        + ", ".join(f"{x:.3f}" for x in enc_s) + f"), denoise step 1 {steps[0]:.3f} s, "
-        f"step 2 {steps[1]:.3f} s, VAE decode {sum(dec_s):.3f} s, total {total:.3f} s; "
-        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"pipeline from a prompt: out {tuple(out.shape)} finite {finite}; flash_fwd launches "
+        f"{launches['flash_fwd']} (expected {expected} = 44 layers x 2 steps); equal to the "
+        f"run given the same embeddings: {same} (max |diff| "
+        f"{(out.float() - given.float()).abs().max().item():.3e})")
+    log(f"pipeline wall times: T5 encodes {sum(t5_s[:2]):.3f} s (prompt and negative prompt), "
+        f"VAE encode {sum(enc_s[:len(enc_s) // 2]):.3f} s, denoise step 1 {steps[0]:.3f} s, "
+        f"step 2 {steps[1]:.3f} s, VAE decode {dec_s[0]:.3f} s, total {total:.3f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB with T5 resident ({t5_bytes / 2**30:.2f} GiB of it: the "
+        f"pipeline keeps its text encoder through the denoise)")
     if not (shape_ok and finite):
         raise AssertionError(f"pipeline output {tuple(out.shape)} finite={finite}")
+    if not same:
+        raise AssertionError("the prompt-driven run differs from the run given its embeddings")
     if launches["flash_fwd"] != expected:
         raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} times, "
                              f"expected {expected}")
     return launches
 
 
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [] if tree is None else [tree]
+
+
+STREAM_PSNR_DB = 60.0   # streamed against one-shot frames, should cuDNN pick another algorithm
+
+
 def phase_anyl_int8(torch, kernels):
-    """Phase 3: the any-length int8 flagship at full width; returns the launch
-    counts of that run."""
+    """Phase 3: the any-length int8 flagship at full width, its frames decoded
+    window by window by the VAE's streaming decoder with the conv caches
+    spilled to host memory between chunks; the streamed frames held against
+    the one-shot decode of the same latents. Returns the launch counts of
+    the pipeline run."""
     from videopainter_tpu_torch.flagship import (ANYL_FRAMES, ANYL_INT8_CALL,
                                                  build_anyl_int8_pipeline, random_clip)
+    from videopainter_tpu_torch.models.vae import VAEStreamDecoder
     from videopainter_tpu_torch.ops.basic import Int8Linear
     from videopainter_tpu_torch.pipelines import inpaint_anyl
 
@@ -685,6 +870,32 @@ def phase_anyl_int8(torch, kernels):
     pipe.vae.decode = timed(pipe.vae.decode, "decode")
     captured = []
     make = inpaint_anyl.make_denoise_fn
+    # the streaming decoder, measured: each feed's latents, frames and time,
+    # and the time its cache copies to and from host memory took
+    fed, copy_s, spilled = [], [0.0], [0]
+    feed, spill, restore = (VAEStreamDecoder.feed, VAEStreamDecoder._spill,
+                            VAEStreamDecoder._restore)
+
+    def timed_copy(fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            copy_s[0] += time.perf_counter() - s0
+            return r
+        return run
+
+    def measured_feed(self, z):
+        copy_s[0] = 0.0
+        fed.append(z.clone())
+        frames = timed(lambda: feed(self, z), f"stream decode {z.shape[1]} latents")()
+        spilled[0] = sum(t.numel() * t.element_size() for c in self.caches.values()
+                         for t in _tensors(c))
+        events[-1] = (events[-1][0] + f" -> {0 if frames is None else frames.shape[1]} frames "
+                      f"(cache copies {copy_s[0]:.3f} s, {spilled[0] / 2**20:.0f} MiB spilled)",
+                      *events[-1][1:])
+        return frames
 
     def make_measured(*a, **kw):
         denoise = make(*a, **kw)
@@ -702,6 +913,11 @@ def phase_anyl_int8(torch, kernels):
         events.append((f"step {i}", time.perf_counter(), time.perf_counter() - last))
 
     inpaint_anyl.make_denoise_fn = make_measured
+    VAEStreamDecoder.feed = measured_feed
+    VAEStreamDecoder._spill = staticmethod(timed_copy(spill))
+    VAEStreamDecoder._restore = staticmethod(timed_copy(restore))
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # stream and one-shot: the same algorithms
     try:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -712,9 +928,20 @@ def phase_anyl_int8(torch, kernels):
         torch.cuda.synchronize()
         total = time.perf_counter() - start
         launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # the one-shot decode of the latents the stream was fed
+        oneshot = torch.clamp(pipe.vae.decode(torch.cat(fed, dim=1)), -1, 1)
+        torch.cuda.synchronize()
     finally:
         inpaint_anyl.make_denoise_fn = make
-    peak = torch.cuda.max_memory_allocated()
+        VAEStreamDecoder.feed = feed
+        VAEStreamDecoder._spill, VAEStreamDecoder._restore = (staticmethod(spill),
+                                                              staticmethod(restore))
+        torch.backends.cudnn.deterministic = cudnn_det
+    same = torch.equal(out, oneshot)
+    stream_psnr = psnr_db(out.float(), oneshot.float())
+    diff = (out.float() - oneshot.float()).abs().max().item()
+    del oneshot
 
     expected = (tcfg.num_layers + 2) * 2 * 2
     shape_ok = tuple(out.shape) == (1, f, hgt, wid, 3)
@@ -725,9 +952,15 @@ def phase_anyl_int8(torch, kernels):
     log("any-length int8 wall times: " + ", ".join(f"{k} {s:.3f} s" for k, _, s in events)
         + f"; total {total:.3f} s; captured state per window "
         + ", ".join(f"{c / 2**20:.1f} MiB" for c in captured)
-        + f"; peak memory {peak / 2**30:.2f} GiB")
+        + f"; peak memory {peak / 2**30:.2f} GiB (streamed decode, caches spilled)")
+    log(f"any-length stream decode: {len(fed)} feeds of " + ", ".join(str(z.shape[1]) for z in fed)
+        + f" latent frames; streamed frames equal to the one-shot decode of the same latents: "
+        f"{same} (max |diff| {diff:.3e}, PSNR {stream_psnr:.1f} dB, min {STREAM_PSNR_DB} if "
+        f"not equal)")
     if not (shape_ok and finite):
         raise AssertionError(f"any-length output {tuple(out.shape)} finite={finite}")
+    if len(fed) != 2 or not (same or stream_psnr >= STREAM_PSNR_DB):
+        raise AssertionError("the streamed decode disagrees with the one-shot decode")
     if launches["flash_int8_fwd"] != expected or launches["flash_fwd"] != 0:
         raise AssertionError(f"any-length int8 launches {launches}, expected "
                              f"{expected} flash_int8_fwd and 0 flash_fwd")
@@ -735,18 +968,6 @@ def phase_anyl_int8(torch, kernels):
         raise AssertionError(f"captured state per window {captured}: the first window "
                              "must capture, the last must not")
     return launches
-
-
-def timed_calls(torch, fn, bucket):
-    """`fn` with each call's wall time (synchronised) appended to `bucket`."""
-    def run(*a, **kw):
-        torch.cuda.synchronize()
-        s0 = time.perf_counter()
-        r = fn(*a, **kw)
-        torch.cuda.synchronize()
-        bucket.append(time.perf_counter() - s0)
-        return r
-    return run
 
 
 def phase_train(torch, kernels):
@@ -1039,7 +1260,8 @@ def sass_stats(kernels, sources):
 
 
 # the mma.sync yardsticks: phase 1 only
-OLD_KEYS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma", "flash_int8_fwd_mma")
+OLD_KEYS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma", "flash_int8_fwd_mma",
+            "flash_int8_uniform_mma")
 
 
 def check_no_yardstick(launches, phase):
@@ -1081,15 +1303,16 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "error", "setmaxnreg",
                                        "serialized")):
                 log(f"  {src}: {line.strip()}")
-    sass = sass_stats(kernels, (fa._SOURCE, fa._DKV_SOURCE, fa._DQ_SOURCE, fa8._SOURCE,
-                                fa8._MMA_SOURCE))
+    int8_sources = (fa8._SOURCE, fa8._UNIFORM_SOURCE, fa8._MMA_SOURCE)
+    sass = sass_stats(kernels, (fa._SOURCE, fa._DKV_SOURCE, fa._DQ_SOURCE, *int8_sources))
     log("SASS: " + ", ".join(
         f"{k} {s['HGMMA']} HGMMA, {s['IGMMA']} IGMMA, highest register R{s['max_reg']}"
         + (f", I2F {s['I2F']} ({s['I2F_loop']} in the key loop), F2I {s['F2I']} "
-           f"({s['F2I_loop']} in the key loop)" if k in (fa8._SOURCE, fa8._MMA_SOURCE) else "")
+           f"({s['F2I_loop']} in the key loop)" if k in int8_sources else "")
         for k, s in sass.items()))
-    wgmma_ok = all(sass[k]["HGMMA"] for k in (fa._SOURCE, fa._DKV_SOURCE, fa._DQ_SOURCE,
-                                              fa8._SOURCE)) and sass[fa8._SOURCE]["IGMMA"]
+    wgmma_ok = (all(sass[k]["HGMMA"] for k in (fa._SOURCE, fa._DKV_SOURCE, fa._DQ_SOURCE,
+                                               fa8._SOURCE, fa8._UNIFORM_SOURCE))
+                and all(sass[k]["IGMMA"] for k in (fa8._SOURCE, fa8._UNIFORM_SOURCE)))
     if not wgmma_ok:
         raise AssertionError(f"a wgmma kernel lacks its HGMMA / IGMMA instructions: {sass}")
 
@@ -1097,24 +1320,36 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    stats = phase_kernels(torch, fa)
-    b2, b3 = phase_bwd_kernels(torch, fa)
-    b4, b5 = phase_int8_kernels(torch, fa, fa8)
+    walls = {}
+
+    def timed_phase(name, fn, *a):
+        s0 = time.perf_counter()
+        r = fn(*a)
+        walls[name] = time.perf_counter() - s0
+        return r
+
+    walls["0 build"] = time.perf_counter() - t
+    stats = timed_phase("1 bf16 forward", phase_kernels, torch, fa)
+    b2, b3 = timed_phase("1 backward", phase_bwd_kernels, torch, fa)
+    b4 = timed_phase("1 int8", phase_int8_kernels, torch, fa, fa8)
+    b5 = timed_phase("1 uniform int8 (new)", phase_uniform_kernels, torch, fa8)
     free()
-    launches = phase_pipeline(torch, kernels)
+    launches = timed_phase("2 single clip from a prompt (T5 new)", phase_pipeline, torch,
+                           kernels)
     check_no_yardstick(launches, "phase 2")
     free()
-    anyl_launches = phase_anyl_int8(torch, kernels)
+    anyl_launches = timed_phase("3 any-length int8, streamed decode (new)", phase_anyl_int8,
+                                torch, kernels)
     check_no_yardstick(anyl_launches, "phase 3")
     free()
-    train_launches = phase_train(torch, kernels)
+    train_launches = timed_phase("5 training", phase_train, torch, kernels)
     free()
-    phase_train_lora(torch, kernels)
+    timed_phase("6 LoRA step", phase_train_lora, torch, kernels)
     free()
     kernels.reset_launches()
-    phase_small(torch)
-    phase_small_anyl(torch)
-    phase_small_train(torch)
+    timed_phase("4 small single clip", phase_small, torch)
+    timed_phase("4 small any-length", phase_small_anyl, torch)
+    timed_phase("7 small training step", phase_small_train, torch)
     check_no_yardstick(kernels.LAUNCHES, "phases 4 and 7")
     log(f"launches of phases 4 and 7: {kernels.LAUNCHES}; the mma.sync yardsticks "
         "launched 0 times after phase 1")
@@ -1127,7 +1362,10 @@ def main() -> int:
     tool_launches = dict(kernels.LAUNCHES)
     if tool_launches["flash_int8_uniform_fwd"] < 1:
         raise AssertionError(f"the int8 tool launched no uniform kernel: {tool_launches}")
+    check_no_yardstick(tool_launches, "the int8 tool")
+    log(f"launches of the int8 tool: {tool_launches}")
 
+    log("phase wall times: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_all:.1f} s, "
         "the kernels' build included")
     csrc = "videopainter_tpu_torch/csrc/"
@@ -1147,7 +1385,7 @@ def main() -> int:
              "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
              "launches": anyl_launches["flash_int8_fwd"], **b4},
             {"name": "flash_int8_uniform_fwd", "route": "cuda",
-             "source": csrc + fa8._MMA_SOURCE,
+             "source": csrc + fa8._UNIFORM_SOURCE,
              "replaces": "tools/bench_int8_attn.py:37",
              "launches": tool_launches["flash_int8_uniform_fwd"], **b5}]
     print(json.dumps({"kernels": rows}), flush=True)

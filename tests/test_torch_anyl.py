@@ -518,8 +518,8 @@ def test_port_anyl_compressed_capture_is_exact(stacks):
     assert torch.equal(full, comp)
     q = run_port_anyl(port, x, compress_capture=4, capture_int8=True, **kw)
     assert not torch.equal(q, comp) and (q - comp).abs().max() < 5e-2
-    with pytest.raises(NotImplementedError, match="stream_decode"):
-        run_port_anyl(port, x, stream_decode=True, **kw)
+    # output_type "latent" returns the averaged latents, streamed decode or not
+    assert torch.equal(run_port_anyl(port, x, compress_capture=4, stream_decode=True, **kw), comp)
     with pytest.raises(ValueError, match="capture"):
         run_port_anyl(port, x, skip_steps=(STEPS - 1,), **kw)
     with pytest.raises(ValueError, match="stride"):

@@ -31,18 +31,19 @@ def test_port_imports_no_jax_and_no_jax_package():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(res["modules"]) >= 36, res["modules"]
+    assert len(res["modules"]) >= 37, res["modules"]
     assert res["bad"] == [], f"the port imported {res['bad']}"
     assert res["launches"] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                                "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
-                               "flash_int8_fwd_mma": 0}
+                               "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0}
     assert res["libs"] == []
     for name in ("quantize", "models.lora", "ops.flash_attention_int8",
                  "pipelines.inpaint_anyl", "tools.bench_int8_attn", "schedulers.ddim",
                  "training", "training.train_branch", "training.optim", "training.masks",
                  "training.data", "training.checkpoint", "training.trainer",
-                 "training.validation", "training.cli"):
+                 "training.validation", "training.cli", "models.text_encoder", "models.vae",
+                 "flagship"):
         assert f"videopainter_tpu_torch.{name}" in res["modules"]
 
 

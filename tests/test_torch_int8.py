@@ -34,7 +34,8 @@ from videopainter_tpu_torch.ops.basic import (Int8Linear, Linear, calibration, i
                                               quantize_linear_int8, quantize_weight_int8)
 from videopainter_tpu_torch.ops.flash_attention_int8 import (
     flash_attention_int8, flash_attention_int8_reference, flash_int8_fwd_cuda,
-    flash_int8_fwd_mma_cuda, int8_flash_uniform, int8_flash_uniform_reference, quantize_qkv)
+    flash_int8_fwd_mma_cuda, int8_flash_uniform, int8_flash_uniform_mma_cuda,
+    int8_flash_uniform_reference, quantize_qkv)
 from videopainter_tpu_torch.pipelines.common import prepare_rope
 
 torch.set_num_threads(2)
@@ -209,6 +210,121 @@ def test_int8_uniform_reference_matches_jax(jax_tool, kv_len, int8_pv):
         np.testing.assert_allclose(out32, ref, rtol=0, atol=2.0 ** -7 * np.abs(ref).max())
     with pytest.raises(ValueError, match="kv_len"):
         int8_flash_uniform(T(q_i8), T(k_i8), tv, d ** -0.5, deq, s + 1, int8_pv=int8_pv)
+
+
+@pytest.mark.parametrize("int8_pv", [False, True])
+def test_int8_uniform_wrapper_matches_jax_tool(jax_tool, int8_pv):
+    """The port's `int8_flash_uniform` (on the CPU, its plain version) against
+    the JAX tool's `_int8_flash` in interpret mode at [4, 300, 64] with
+    kv_len 257 (a masked tail; one 300-key block on both sides, the port's
+    default blk_k covering it), at the previous test's tolerances."""
+    rng = np.random.default_rng(300)
+    n, s, d, kv_len = 4, 300, 64, 257
+    q_i8, k_i8 = (rng.integers(-127, 128, (n, s, d)).astype(np.int8) for _ in range(2))
+    v = rng.integers(-127, 128, (n, s, d)).astype(np.int8) if int8_pv else \
+        rng.standard_normal((n, s, d)).astype(np.float32)
+    deq = 3.0 / (127 * 127)
+    jv = jnp.asarray(v) if int8_pv else jnp.asarray(v, jnp.bfloat16)
+    ref = jax_call(lambda *a, **k: jax_tool._int8_flash(*a, **k).astype(jnp.float32),
+                   jnp.asarray(q_i8), jnp.asarray(k_i8), jv, d ** -0.5, deq, kv_len, s, s,
+                   int8_pv=int8_pv)
+    tv = T(v) if int8_pv else T(v).to(torch.bfloat16)
+    out = int8_flash_uniform(T(q_i8), T(k_i8), tv, d ** -0.5, deq, kv_len, int8_pv=int8_pv)
+    assert out.dtype == torch.bfloat16 and out.shape == (n, s, d)
+    out32 = out.float().numpy()
+    if int8_pv:
+        np.testing.assert_allclose(out32, ref, rtol=0, atol=2.0)
+        assert np.abs(out32 - ref).mean() < 1e-3 * np.abs(ref).mean()
+    else:
+        np.testing.assert_allclose(out32, ref, rtol=0, atol=2.0 ** -7 * np.abs(ref).max())
+
+
+def test_int8_uniform_entries_check_their_arguments():
+    """Both uniform entries (the Hopper kernel behind `int8_flash_uniform` and
+    the mma.sync yardstick) refuse mismatched shapes and a kv_len outside
+    [1, S_k] before they look for a card; without a card the kernels raise
+    instead of running the plain version."""
+    q = torch.zeros((2, 130, 64), dtype=torch.int8)
+    v = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
+    for fn in (int8_flash_uniform, int8_flash_uniform_mma_cuda):
+        with pytest.raises(ValueError, match="matching N"):
+            fn(q, q[:, :, :32], v, 0.125, 1e-3, 130)
+        with pytest.raises(ValueError, match="matching N"):
+            fn(q[0], q[0], v[0], 0.125, 1e-3, 130)
+        for bad in (0, 131):
+            with pytest.raises(ValueError, match="kv_len"):
+                fn(q, q, v, 0.125, 1e-3, bad)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        int8_flash_uniform_mma_cuda(q, q, v, 0.125, 1e-3, 130)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        int8_flash_uniform(q.to("meta"), q.to("meta"), v.to("meta"), 0.125, 1e-3, 130)
+
+
+def _fold_model(s_rows, f, tile=128, m_shift=0.0):
+    """A numpy model of csrc/flash_int8_uniform_wgmma.cu's softmax on int32
+    scores [rows, keys] and the fp32 factor f: x = s + 1.5 * 2^23 as the float
+    of the bits s + 0x4B400000, the running max M of x * f rounded up (plus a
+    per-row error `m_shift`, in ulps of M), p = exp2(fma(x, f, -M)) per
+    128-key tile, alpha = exp2(M_old - M_new). The fma's product of two fp32
+    values is exact in fp64; its one rounding is the cast to fp32. Returns
+    (the row weights p / l as fp64, the largest p)."""
+    x = (s_rows.astype(np.int64) + 0x4B400000).astype(np.int32).view(np.float32)
+    f = np.float32(f)
+    rows = x.shape[0]
+    m = np.full(rows, -1e30, np.float32)
+    l = np.zeros(rows, np.float64)
+    parts, p_max = [], 0.0
+    for c0 in range(0, x.shape[1], tile):
+        xt = x[:, c0:c0 + tile]
+        up = xt.max(axis=1).astype(np.float64) * np.float64(f)
+        m_new = np.maximum(m, np.float32(up))
+        m_new = np.where(m_new.astype(np.float64) < up, np.nextafter(m_new, np.float32(np.inf)),
+                         m_new)   # rounded up: no x f of the row exceeds it
+        m_new = m_new + m_shift * np.spacing(m_new)
+        alpha = np.exp2((m - m_new).astype(np.float32).astype(np.float64))
+        y = (xt.astype(np.float64) * np.float64(f) - m_new[:, None].astype(np.float64))
+        p = np.exp2(y.astype(np.float32).astype(np.float64))
+        p_max = max(p_max, p.max())
+        l = l * alpha + p.sum(axis=1)
+        parts = [q * alpha[:, None] for q in parts] + [p]
+        m = m_new
+    return np.concatenate(parts, axis=1) / l[:, None], p_max
+
+
+def test_folded_conversion_model_is_exact_up_to_one_rounding():
+    """Why the uniform kernel may fold the int32 -> fp32 conversion into the
+    softmax's FMA: the shift 1.5 * 2^23 * f is the same for every score, and
+    M's rounding the same within a row, so both cancel in p / l. Against the
+    exact softmax (fp64) of s * f, the model's weights agree to a few fp32
+    ulps, also at the extreme |s| = 64 * 127^2 and with a row max that rises
+    in a later tile; a per-row error of M (here 3 ulps) changes nothing but
+    rounding; every p stays <= 1 (the int8 P.V mode's need). Forming x * f
+    in fp32 first and subtracting M after (the fold without the FMA) would
+    round the large product: 8 to 400 times the error here."""
+    rng = np.random.default_rng(9)
+    big = 64 * 127 ** 2
+    s = rng.integers(-big, big + 1, (8, 700)).astype(np.int32)
+    s[:, 300] = big                         # the max appears in the third tile
+    s[:, 0] = -big
+    s[1] = rng.integers(-2000, 2000, 700)   # a flat row
+    for f in (0.125 * 3.0 / 127 ** 2 * np.log2(np.e), 2.5e-6, 3e-8):
+        sf = s.astype(np.float64) * np.float64(np.float32(f))
+        exact = np.exp2(sf - sf.max(axis=1, keepdims=True))
+        exact /= exact.sum(axis=1, keepdims=True)
+        w, p_max = _fold_model(s, f)
+        assert p_max <= 1.0
+        np.testing.assert_allclose(w, exact, rtol=2e-5, atol=1e-9)
+        w_shift, _ = _fold_model(s, f, m_shift=3.0)
+        np.testing.assert_allclose(w_shift, w, rtol=2e-5, atol=1e-9)
+        # the fold without the fma: fl(x f) rounds a product near 1.26e7 f
+        x = (s.astype(np.int64) + 0x4B400000).astype(np.int32).view(np.float32)
+        xf = (x * np.float32(f)).astype(np.float64)
+        naive = np.exp2(xf - xf.max(axis=1, keepdims=True))
+        naive /= naive.sum(axis=1, keepdims=True)
+        err = lambda a: np.abs(a - exact).max() / exact.max()
+        assert err(w) < 1e-7 and err(naive) > 5 * err(w)
 
 
 # -- the W8A8 linear -------------------------------------------------------------------------
@@ -494,5 +610,29 @@ def test_int8_flash_kernel_matches_reference_on_the_card():
                 out = out.float()
                 if pv:
                     assert (out - ref).abs().mean() <= 0.03 * ref.abs().mean()
+                else:
+                    assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_int8_uniform_kernel_matches_reference_on_the_card():
+    """The uniform-scale Hopper kernel and its mma.sync yardstick against their
+    plain version on a card: `int8` 2^-6 of the largest output; `int8pv`
+    rel_l1 0.017 (the new kernel) / 0.03 (the yardstick), the P-rounding
+    noise between 128- or 64-key tiles and 2048-key blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(8)
+    for n, s, kv_len in ((6, 1000, 901), (1, 65, 65)):
+        q_i8, k_i8, v_i8 = (T(rng.integers(-127, 128, (n, s, 64)).astype(np.int8)).cuda()
+                            for _ in range(3))
+        v_bf = (v_i8.float() / 127).to(torch.bfloat16)
+        for pv, v in ((False, v_bf), (True, v_i8)):
+            ref = int8_flash_uniform_reference(q_i8, k_i8, v, 0.125, 3.0 / 127 ** 2, kv_len,
+                                               int8_pv=pv).float()
+            for fn, limit in ((int8_flash_uniform, 0.017), (int8_flash_uniform_mma_cuda, 0.03)):
+                out = fn(q_i8, k_i8, v, 0.125, 3.0 / 127 ** 2, kv_len, int8_pv=pv).float()
+                if pv:
+                    assert (out - ref).abs().mean() <= limit * ref.abs().mean()
                 else:
                     assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()

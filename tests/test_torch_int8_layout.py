@@ -24,7 +24,9 @@ from videopainter_tpu_torch import _kernels
 from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
 
 TILE = 128          # keys per tile of the kernel (its S accumulator is m64n128)
-SOURCE = (_kernels.CSRC / "flash_int8_wgmma.cu").read_text()
+# the kernel's code: its source and the int8 kernels' common header it includes
+SOURCE = "".join((_kernels.CSRC / name).read_text()
+                 for name in ("flash_int8_wgmma.cu", "int8_wgmma.cuh"))
 
 
 def acc_position(warp, g, t, i):

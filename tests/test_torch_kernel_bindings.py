@@ -59,7 +59,7 @@ _ENTRIES = entries()
 
 
 def test_every_entry_point_is_bound_and_every_binding_exists():
-    assert len(_ENTRIES) >= 9
+    assert len(_ENTRIES) >= 10
     assert set(bindings()) == set(_ENTRIES)
 
 
@@ -90,15 +90,17 @@ int helper(int a) { return a; }'''
 REPLACED = [("flash_fwd_wgmma.cu", "flash_fwd.cu", "vp_flash_fwd"),
             ("flash_dkv_wgmma.cu", "flash_bwd.cu", "vp_flash_dkv"),
             ("flash_dq_wgmma.cu", "flash_bwd.cu", "vp_flash_dq"),
-            ("flash_int8_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_fwd")]
+            ("flash_int8_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_fwd"),
+            ("flash_int8_uniform_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_uniform_fwd")]
 
 
 def test_new_kernels_keep_the_entry_points_of_the_kernels_they_replace():
     """flash_fwd_wgmma.cu / flash_dkv_wgmma.cu / flash_dq_wgmma.cu /
-    flash_int8_wgmma.cu declare exactly the parameters of the mma.sync
-    entries (flash_fwd.cu, flash_bwd.cu's vp_flash_dkv and vp_flash_dq,
-    flash_int8_fwd.cu's vp_flash_int8_fwd), so a wrapper switches kernels by
-    switching libraries."""
+    flash_int8_wgmma.cu / flash_int8_uniform_wgmma.cu declare exactly the
+    parameters of the mma.sync entries (flash_fwd.cu, flash_bwd.cu's
+    vp_flash_dkv and vp_flash_dq, flash_int8_fwd.cu's vp_flash_int8_fwd and
+    vp_flash_int8_uniform_fwd), so a wrapper switches kernels by switching
+    libraries."""
     for new, old, entry in REPLACED:
         assert _ENTRIES[(new, entry)] == _ENTRIES[(old, entry)]
         text = (_kernels.CSRC / new).read_text()
@@ -127,3 +129,29 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _kernels._lib_path("k.cu") != first
     assert first.name.startswith("libk_")
+
+
+def test_uniform_int8_entry_is_bound_to_the_hopper_kernel():
+    """`int8_flash_uniform` launches csrc/flash_int8_uniform_wgmma.cu under the
+    launch key flash_int8_uniform_fwd; the mma.sync entry of the same name in
+    csrc/flash_int8_fwd.cu is reachable only as the yardstick, under
+    flash_int8_uniform_mma. The new source folds the score conversion into
+    the softmax's FMA (the 1.5 * 2^23 shift) and keeps no scale table."""
+    import inspect
+
+    assert fa8._UNIFORM_SOURCE == "flash_int8_uniform_wgmma.cu"
+    assert (fa8._UNIFORM_SOURCE, fa8._UNIFORM_SIGNATURES) in fa8.SOURCES
+    body = inspect.getsource(fa8.int8_flash_uniform)
+    assert "_UNIFORM_SOURCE" in body and '"flash_int8_uniform_fwd"' in body
+    assert "_MMA_SOURCE" not in body
+    yard = inspect.getsource(fa8.int8_flash_uniform_mma_cuda)
+    assert "_MMA_SOURCE" in yard and '"flash_int8_uniform_mma"' in yard
+    assert {"flash_int8_uniform_fwd", "flash_int8_uniform_mma"} <= set(_kernels.LAUNCHES)
+    text = (_kernels.CSRC / fa8._UNIFORM_SOURCE).read_text()
+    assert "0x4B400000" in text and "__fmul_ru" in text and "issue_qk" in text
+    assert "sk_row" not in text and "kv_page" not in text
+    # the int8 kernels' common parts (tiles, P packing, the s8 / bf16 wgmma issue)
+    shared = (_kernels.CSRC / "int8_wgmma.cuh").read_text()
+    assert "wgmma_ss_m64n128_s8" in shared and "pack_p8" in shared
+    for source in (fa8._SOURCE, fa8._UNIFORM_SOURCE):
+        assert '#include "int8_wgmma.cuh"' in (_kernels.CSRC / source).read_text()

@@ -6,13 +6,14 @@ Each source under `csrc/` is compiled at first use with
 
 into a shared library with a plain C interface, loaded through `ctypes`:
 `flash_fwd_wgmma.cu`, the bf16 flash forward, `flash_dq_wgmma.cu` and
-`flash_dkv_wgmma.cu`, its dQ and dK/dV backward, and `flash_int8_wgmma.cu`,
-the int8 flash forward (warp-specialised Hopper kernels: TMA, mbarriers,
-wgmma; their common PTX in `hopper.cuh`); `flash_int8_fwd.cu`, the int8
-forward's uniform-scale precursor. `flash_fwd.cu`, `flash_bwd.cu` (dQ and
-dK/dV) and `flash_int8_fwd.cu`'s `vp_flash_int8_fwd` are the first, mma.sync
-versions of the forward, backward and int8 kernels, kept as a yardstick that
-chip_smoke.py times against the new ones; no path of the port calls them.
+`flash_dkv_wgmma.cu`, its dQ and dK/dV backward, `flash_int8_wgmma.cu`,
+the int8 flash forward, and `flash_int8_uniform_wgmma.cu`, its uniform-scale
+precursor (warp-specialised Hopper kernels: TMA, mbarriers, wgmma; their
+common PTX in `hopper.cuh`, the two int8 kernels' common parts in
+`int8_wgmma.cuh`). `flash_fwd.cu`, `flash_bwd.cu` (dQ and dK/dV)
+and `flash_int8_fwd.cu` (both int8 entries) are the first, mma.sync versions
+of those kernels, kept as a yardstick that chip_smoke.py times against the
+new ones; no path of the port calls them.
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
@@ -43,7 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                             "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
-                            "flash_int8_fwd_mma": 0}
+                            "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised flash kernels
 // (flash_fwd_wgmma.cu, flash_dkv_wgmma.cu, flash_dq_wgmma.cu,
-// flash_int8_wgmma.cu): mbarriers, TMA tensor loads, wgmma descriptors and
-// instructions (bf16 and s8), named barriers, register hand-over, and the
-// host-side tensor-map encoder. Inline PTX only.
+// flash_int8_wgmma.cu, flash_int8_uniform_wgmma.cu; the int8 kernels' own
+// common parts are in int8_wgmma.cuh): mbarriers, TMA tensor loads, wgmma
+// descriptors and instructions (bf16 and s8), named barriers, register
+// hand-over, and the host-side tensor-map encoder. Inline PTX only.
 //
 // bf16 shared-memory operands are written by TMA with the 128-byte swizzle. A bf16
 // row of d = 64 is exactly 128 bytes, one swizzle row, so a tile of R rows is

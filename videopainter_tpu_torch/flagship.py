@@ -15,6 +15,9 @@ quality. `build_training` makes the branch-SFT (or ID-LoRA) training set-up
 at the same width: the frozen bf16 backbone and VAE, a float32 branch
 initialised from the backbone (or a frozen bf16 branch and a float32 rank-256
 adapter), the DDIM scheduler, AdamW, and a synthetic batch.
+`build_text_encoder` makes the prompt path's T5-v1.1-XXL encoder (the text
+tower of CogVideoX-5b-I2V) at its published width with seeded random
+weights, and a word-hash tokenizer in place of T5's SentencePiece model.
 
     python -m videopainter_tpu_torch.flagship [--anyl-int8 | --train] [--out DIR]
 
@@ -39,14 +42,17 @@ import contextlib
 import json
 import os
 import time
+import zlib
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import card_line
 from .config import BranchConfig, SchedulerConfig, TransformerConfig, VAEConfig
 from .models import AutoencoderKLCogVideoX, CogVideoXBranch, CogVideoXTransformer3D
 from .models.lora import init_lora_params, merge_lora
+from .models.text_encoder import T5TextEncoder
 from .pipelines import CogVideoXI2VDualInpaintAnyLPipeline, CogVideoXI2VDualInpaintPipeline
 from .quantize import quantize_transformer_int8
 from .schedulers import CogVideoXDDIMScheduler, CogVideoXDPMScheduler
@@ -165,14 +171,77 @@ def build_training(generator: torch.Generator, *, device="cuda",
             "optimizer": make_optimizer(lr=1e-5), "trainable": trainable, "batch": batch}
 
 
+# google/t5-v1_1-xxl's encoder, as CogVideoX-5b-I2V's text_encoder/config.json gives it
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24, num_heads=64,
+              relative_attention_num_buckets=32, relative_attention_max_distance=128,
+              feed_forward_proj="gated-gelu", layer_norm_epsilon=1e-6, dropout_rate=0.1,
+              is_encoder_decoder=False, use_cache=False, tie_word_embeddings=False,
+              pad_token_id=0, eos_token_id=1)
+
+
+class HashTokenizer:
+    """Stands in for T5's SentencePiece tokenizer, whose model is not in the
+    repository: word w (split on whitespace) becomes 3 + crc32(w) mod
+    (vocab - 3), then </s> (1), then <pad> (0) up to max_length. It keeps
+    the calling convention of `T5TextEncoder.encode`."""
+
+    def __init__(self, vocab_size: int = T5_XXL["vocab_size"]):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text: str, *, padding: str, max_length: int, truncation: bool,
+                 add_special_tokens: bool, return_tensors: str) -> Dict[str, np.ndarray]:
+        if padding != "max_length" or not truncation or return_tensors != "np":
+            raise ValueError("HashTokenizer pads to max_length, truncates and returns numpy")
+        ids = [3 + zlib.crc32(w.encode()) % (self.vocab_size - 3) for w in text.split()]
+        ids = ids[:max_length - int(add_special_tokens)] + [1] * int(add_special_tokens)
+        return {"input_ids": np.asarray([ids + [0] * (max_length - len(ids))], np.int64)}
+
+
+@torch.no_grad()
+def build_text_encoder(seed: int, device="cuda", **overrides) -> T5TextEncoder:
+    """T5-v1.1-XXL (4.76 B parameters, bf16; `overrides` change T5_XXL's
+    fields) with seeded random weights at T5's own initialisation scales
+    (embeddings N(0, 1); q N(0, 1 / (d_model d_kv)); k, v, wi and the
+    relative bias N(0, 1 / d_model); o and wo N(0, 1 / fan_in); norms 1),
+    which keep the activations finite. Built on the meta device and drawn on
+    `device`: nothing is initialised twice."""
+    from transformers import T5Config, T5EncoderModel
+
+    cfg = T5Config(**{**T5_XXL, **overrides})
+    with torch.device("meta"):
+        model = T5EncoderModel(cfg)
+    # the encoder reads the shared embedding, as T5EncoderModel ties them (a
+    # transformers version that ties at weight loading leaves them apart here)
+    model.encoder.embed_tokens = model.shared
+    model = model.to(torch.bfloat16).to_empty(device=device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    std = {"SelfAttention.q": (cfg.d_model * cfg.d_kv) ** -0.5,
+           "SelfAttention.k": cfg.d_model ** -0.5, "SelfAttention.v": cfg.d_model ** -0.5,
+           "SelfAttention.o": (cfg.num_heads * cfg.d_kv) ** -0.5,
+           "relative_attention_bias": cfg.d_model ** -0.5,
+           "wi_0": cfg.d_model ** -0.5, "wi_1": cfg.d_model ** -0.5, "wo": cfg.d_ff ** -0.5,
+           "shared": 1.0}
+    for name, p in model.named_parameters():
+        if "layer_norm" in name:
+            p.fill_(1.0)
+            continue
+        sd = [v for k, v in std.items() if k in name]
+        if len(sd) != 1:
+            raise RuntimeError(f"no initialisation scale for T5 parameter {name}")
+        p.normal_(0.0, sd[0], generator=gen)
+    return T5TextEncoder(HashTokenizer(cfg.vocab_size), model)
+
+
 FLAGSHIP_CALL = dict(guidance_scale=6.0, use_dynamic_cfg=True, replace_gt=True,
                      mask_add=True, use_flash=True, dtype=torch.bfloat16)
 # 81 frames in windows of 49 with a stride of 32: 2 windows that overlap by 4
 # latent frames; prev_clip_weight 0 is the serving default (the resample path
-# still attends to the zeroed page of masked keys)
+# still attends to the zeroed page of masked keys); the frames of a window
+# decoded as soon as no later window touches them, the decoder's caches
+# spilled to host memory in between
 ANYL_INT8_CALL = dict(FLAGSHIP_CALL, use_flash="int8", num_frames=49, stride=32,
                       id_pool_resample=True, prev_clip_weight=0.0, compress_capture=2048,
-                      capture_int8=True)
+                      capture_int8=True, stream_decode=True)
 ANYL_FRAMES = 81
 
 

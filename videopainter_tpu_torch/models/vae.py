@@ -12,12 +12,16 @@ cuDNN without transposes. Parameter names are the diffusers names.
    caches carried across batches as in the reference.
  - Tiled encode/decode with linear blending that keeps the reference's
    in-place quirk: each tile blends against its already-blended neighbours.
-The streaming decoder (the any-length pipeline's `stream_decode`) belongs to
-a later slice.
+ - Batch slicing (`enable_slicing`): a batch is encoded / decoded one
+   sample at a time.
+ - The streaming decoder (`stream_decoder`, the any-length pipeline's
+   `stream_decode`): latent frames fed as they become final, decoded chunk
+   by chunk, bit-identical to the one-shot decode.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -319,6 +323,7 @@ class AutoencoderKLCogVideoX(nn.Module):
         self.tile_overlap_factor_height = 1 / 6
         self.tile_overlap_factor_width = 1 / 5
         self.use_tiling = False
+        self.use_slicing = False
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator) -> "AutoencoderKLCogVideoX":
@@ -341,6 +346,12 @@ class AutoencoderKLCogVideoX(nn.Module):
 
     def disable_tiling(self):
         self.use_tiling = False
+
+    def enable_slicing(self):
+        self.use_slicing = True
+
+    def disable_slicing(self):
+        self.use_slicing = False
 
     # -- frame batching (NCDHW inside) ----------------------------------------
     @staticmethod
@@ -416,21 +427,28 @@ class AutoencoderKLCogVideoX(nn.Module):
                 (self.tile_overlap_factor_height, self.tile_overlap_factor_width))
         return self._frame_batched_encode(x)
 
-    def _decode_single(self, z: torch.Tensor) -> torch.Tensor:
+    def _decode_tiles(self, z: torch.Tensor, fn) -> torch.Tensor:
+        """fn over z's spatial tiles, blended, when tiling applies; else fn(z)."""
         h, w = z.shape[3], z.shape[4]
         if self.use_tiling and (w > self.tile_latent_min_width or h > self.tile_latent_min_height):
             return self._tiled(
-                z, self._frame_batched_decode,
-                (self.tile_latent_min_height, self.tile_latent_min_width),
+                z, fn, (self.tile_latent_min_height, self.tile_latent_min_width),
                 (self.tile_sample_min_height, self.tile_sample_min_width),
                 (self.tile_overlap_factor_height, self.tile_overlap_factor_width))
-        return self._frame_batched_decode(z)
+        return fn(z)
+
+    def _decode_single(self, z: torch.Tensor) -> torch.Tensor:
+        return self._decode_tiles(z, self._frame_batched_decode)
 
     # -- public API (channels-last, as the JAX package) -------------------------
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
         """x: [B, T, H, W, 3] -> DiagonalGaussian over [B, T', H/8, W/8, C_lat]."""
-        h = self._encode_single(_to_ncdhw(x))
+        x = _to_ncdhw(x)
+        if self.use_slicing and x.shape[0] > 1:
+            h = torch.cat([self._encode_single(x[i:i + 1]) for i in range(x.shape[0])])
+        else:
+            h = self._encode_single(x)
         mean, logvar = _to_ndhwc(h).chunk(2, dim=-1)
         return DiagonalGaussian(mean, logvar)
 
@@ -439,4 +457,107 @@ class AutoencoderKLCogVideoX(nn.Module):
         """z: [B, T, h, w, C_lat] -> [B, T_out, H, W, 3]."""
         if z.shape[1] == 1:
             z = torch.cat([z, z], dim=1)  # single-frame decode duplicates the frame
-        return _to_ndhwc(self._decode_single(_to_ncdhw(z)))
+        z = _to_ncdhw(z)
+        if self.use_slicing and z.shape[0] > 1:
+            return _to_ndhwc(torch.cat([self._decode_single(z[i:i + 1])
+                                        for i in range(z.shape[0])]))
+        return _to_ndhwc(self._decode_single(z))
+
+    def stream_decoder(self, total_t: int, cache_spill: bool = False) -> "VAEStreamDecoder":
+        """An incremental decoder of `total_t` latent frames: feed them as they
+        become final and receive the decoded pixel frames chunk by chunk.
+        The emitted frames, concatenated, are bit-identical to `decode` of
+        all of them (see VAEStreamDecoder). cache_spill: keep each spatial
+        tile's conv caches in pinned host memory between chunks."""
+        return VAEStreamDecoder(self, total_t, cache_spill=cache_spill)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+class VAEStreamDecoder:
+    """Stateful incremental decoder (counterpart of the JAX package's).
+
+    The chunk boundaries are precomputed from `total_t` with the one-shot
+    decode's frame-batching rule (batches of 2 latent frames, the remainder
+    in the first). Fed latent frames wait until they complete the next
+    chunk; each chunk is decoded with the causal conv caches carried from
+    the previous one, one cache per spatial tile under tiling, exactly as
+    the one-shot decode carries them across its frame batches. Tile blending
+    mixes values within a frame only, so blending chunk by chunk is exact.
+
+    Memory: streaming holds the caches of every spatial tile at once, where
+    the one-shot tiled decode finishes a tile before the next. With
+    `cache_spill` each tile's caches go to pinned host memory after its
+    chunk and come back before its next one (plain copies: bit-identical),
+    so the card holds one tile's caches at a time beside the resident DiT.
+    """
+
+    def __init__(self, vae: AutoencoderKLCogVideoX, total_t: int, cache_spill: bool = False):
+        if total_t < 2:
+            raise ValueError("stream_decoder needs total_t >= 2 "
+                             "(single-frame decode duplicates the frame)")
+        self.vae = vae
+        self.total_t = total_t
+        self.cache_spill = cache_spill
+        fbs = vae.num_latent_frames_batch_size
+        self.boundaries = vae._batches(total_t, fbs, max(total_t // fbs, 1))
+        self.next_chunk = 0
+        self.pending: Optional[torch.Tensor] = None
+        self.fed = 0
+        self.caches: Dict[int, Any] = {}
+
+    @staticmethod
+    def _spill(cache):
+        """The cache's tensors copied to host memory (pinned when they come
+        from the card, so the copies back can run asynchronously)."""
+        def host(t):
+            if t.device.type == "cpu":
+                return t.clone()
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        return _map_tensors(host, cache)
+
+    @staticmethod
+    def _restore(cache, device):
+        return _map_tensors(lambda t: t.to(device, non_blocking=True), cache)
+
+    def _decode_chunk(self, zb: torch.Tensor) -> torch.Tensor:
+        """One chunk [B, C, t, h, w] through the decoder, tile by tile (the
+        tiles come in the same order every chunk), caches carried."""
+        tile = itertools.count()
+
+        def run(z):
+            key = next(tile)
+            cache = self.caches.get(key)
+            if cache is not None and self.cache_spill:
+                cache = self._restore(cache, z.device)
+            y, cache = self.vae.decoder(z, cache)
+            self.caches[key] = self._spill(cache) if self.cache_spill else cache
+            return y
+
+        return self.vae._decode_tiles(zb, run)
+
+    @torch.no_grad()
+    def feed(self, z: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Feed the next latent frames [B, t, h, w, C] (None: no new frames).
+        Returns the decoded pixel frames [B, T, H, W, 3] of every chunk now
+        complete, or None when none completed."""
+        if z is not None and z.shape[1]:
+            if self.fed + z.shape[1] > self.total_t:
+                raise ValueError(f"fed {self.fed + z.shape[1]} > total_t {self.total_t}")
+            self.fed += z.shape[1]
+            self.pending = z if self.pending is None else torch.cat([self.pending, z], dim=1)
+        outs = []
+        while self.next_chunk < len(self.boundaries):
+            s, e = self.boundaries[self.next_chunk]
+            if self.pending is None or self.pending.shape[1] < e - s:
+                break
+            zb, self.pending = self.pending[:, :e - s], self.pending[:, e - s:]
+            outs.append(_to_ndhwc(self._decode_chunk(_to_ncdhw(zb))))
+            self.next_chunk += 1
+        if not outs:
+            return None
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -25,10 +25,12 @@ raises. Inference only: the wrapper raises under autograd instead of letting
 the rounding return a zero gradient.
 
 `int8_flash_uniform` is the kernel's precursor (the JAX package's
-`tools/bench_int8_attn.py::_int8_kernel`, the second entry of
-`csrc/flash_int8_fwd.cu`): already quantized operands, one scalar
-dequantization scale, the plain `kv_len` mask and `/ 127` on the int8 P.V
-product.
+`tools/bench_int8_attn.py::_int8_kernel`), `csrc/flash_int8_uniform_wgmma.cu`:
+already quantized operands, one scalar dequantization scale, the plain
+`kv_len` mask and `/ 127` on the int8 P.V product; the same Hopper design,
+with the int32 -> fp32 conversion folded into the softmax. Its first,
+mma.sync version (`vp_flash_int8_uniform_fwd` of `csrc/flash_int8_fwd.cu`)
+stays reachable through `int8_flash_uniform_mma_cuda` only, as a yardstick.
 
 In the int8 P.V mode the kernels read V transposed, `[B, H, D, S_k]` padded
 with zeros to their key tile (`kernel_vt`, written in the pass that
@@ -53,13 +55,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FWD_SIGNATURE = [_P] * 7 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _I, _I, _I, _P]
 _SOURCE = "flash_int8_wgmma.cu"
 _SIGNATURES = {"vp_flash_int8_fwd": _FWD_SIGNATURE}
-_MMA_SOURCE = "flash_int8_fwd.cu"   # the mma.sync kernel (yardstick) and the precursor
-_MMA_SIGNATURES = {
-    "vp_flash_int8_fwd": _FWD_SIGNATURE,
-    "vp_flash_int8_uniform_fwd": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _F, _I, _I, _P],
-}
+_UNIFORM_SIGNATURE = [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _F, _I, _I, _P]
+_UNIFORM_SOURCE = "flash_int8_uniform_wgmma.cu"
+_UNIFORM_SIGNATURES = {"vp_flash_int8_uniform_fwd": _UNIFORM_SIGNATURE}
+_MMA_SOURCE = "flash_int8_fwd.cu"   # the mma.sync kernels of both entries (yardsticks)
+_MMA_SIGNATURES = {"vp_flash_int8_fwd": _FWD_SIGNATURE,
+                   "vp_flash_int8_uniform_fwd": _UNIFORM_SIGNATURE}
 # every (source, signatures) the port builds, as chip_smoke.py builds them
-SOURCES = ((_SOURCE, _SIGNATURES), (_MMA_SOURCE, _MMA_SIGNATURES))
+SOURCES = ((_SOURCE, _SIGNATURES), (_UNIFORM_SOURCE, _UNIFORM_SIGNATURES),
+           (_MMA_SOURCE, _MMA_SIGNATURES))
 # the kernels' tiles (query rows, keys); quantization blocks are multiples of them
 _KERNEL_BLK_Q, _KERNEL_BLK_K, _MMA_BLK_K = 128, 128, 64
 # position 4t + i of a 16-key group of the wgmma kernel's V^T holds key PERM16[4t + i]
@@ -316,6 +320,33 @@ def int8_flash_uniform_reference(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torc
                                 kv_page_len=None, out_dtype=torch.bfloat16)
 
 
+def _launch_uniform(source, signatures, key, vt_tile, permuted, q_i8, k_i8, v, sm_scale,
+                    deq_scale, kv_len, int8_pv):
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{key} needs a CUDA device")
+    n, s_q, _ = q_i8.shape
+    s_k = k_i8.shape[1]
+    q4, k4 = q_i8[None], k_i8[None]
+    out, v_in = _launch_args(q4, k4, v[None], int8_pv, vt_tile, permuted)
+    lib = _kernels.load(source, signatures)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vp_flash_int8_uniform_fwd(
+            q4.data_ptr(), k4.data_ptr(), v_in.data_ptr(), out.data_ptr(), 1, n, s_q, s_k,
+            *q4.stride()[:3], *k4.stride()[:3], *v_in.stride()[:3], *out.stride()[:3],
+            float(sm_scale), float(deq_scale), kv_len, int(int8_pv), stream)
+    _kernels.check(rc, key)
+    _kernels.LAUNCHES[key] += 1
+    return out[0]
+
+
+def _check_uniform_args(q_i8, k_i8, v, kv_len):
+    if q_i8.ndim != 3 or k_i8.shape != v.shape or q_i8.shape[0] != k_i8.shape[0]:
+        raise ValueError("q_i8, k_i8, v must be [N, S, D] with matching N and key shapes")
+    if not 1 <= kv_len <= k_i8.shape[1]:
+        raise ValueError(f"kv_len {kv_len} out of range for S_k {k_i8.shape[1]}")
+
+
 def int8_flash_uniform(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
                        sm_scale: float, deq_scale: float, kv_len: int, *,
                        int8_pv: bool = False) -> torch.Tensor:
@@ -323,27 +354,26 @@ def int8_flash_uniform(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
     global dequantization scale: softmax(sm_scale * deq_scale * q_i8 k_i8^T,
     keys < kv_len) v, and with int8_pv round(P * 127) v_i8 / 127 (the caller
     applies v's own scale). q_i8, k_i8: int8 [N, S, D]; v: bf16, or int8 with
-    int8_pv; returns bf16 [N, S_q, D]."""
-    if q_i8.ndim != 3 or k_i8.shape != v.shape or q_i8.shape[0] != k_i8.shape[0]:
-        raise ValueError("q_i8, k_i8, v must be [N, S, D] with matching N and key shapes")
-    if not 1 <= kv_len <= k_i8.shape[1]:
-        raise ValueError(f"kv_len {kv_len} out of range for S_k {k_i8.shape[1]}")
+    int8_pv; returns bf16 [N, S_q, D]. On CUDA tensors it launches
+    csrc/flash_int8_uniform_wgmma.cu."""
+    _check_uniform_args(q_i8, k_i8, v, kv_len)
     if q_i8.device.type == "cpu":
         return int8_flash_uniform_reference(q_i8, k_i8, v, sm_scale, deq_scale, kv_len,
                                             int8_pv=int8_pv)
     if q_i8.device.type != "cuda":
         raise ValueError(f"int8_flash_uniform runs on cpu or cuda tensors, got {q_i8.device}")
-    n, s_q, _ = q_i8.shape
-    s_k = k_i8.shape[1]
-    q4, k4 = q_i8[None], k_i8[None]
-    out, v_in = _launch_args(q4, k4, v[None], int8_pv, _MMA_BLK_K, False)
-    lib = _kernels.load(_MMA_SOURCE, _MMA_SIGNATURES)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vp_flash_int8_uniform_fwd(
-            q4.data_ptr(), k4.data_ptr(), v_in.data_ptr(), out.data_ptr(), 1, n, s_q, s_k,
-            *q4.stride()[:3], *k4.stride()[:3], *v_in.stride()[:3], *out.stride()[:3],
-            float(sm_scale), float(deq_scale), kv_len, int(int8_pv), stream)
-    _kernels.check(rc, "flash_int8_uniform_fwd")
-    _kernels.LAUNCHES["flash_int8_uniform_fwd"] += 1
-    return out[0]
+    return _launch_uniform(_UNIFORM_SOURCE, _UNIFORM_SIGNATURES, "flash_int8_uniform_fwd",
+                           _KERNEL_BLK_K, True, q_i8, k_i8, v, sm_scale, deq_scale, kv_len,
+                           int8_pv)
+
+
+def int8_flash_uniform_mma_cuda(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
+                                sm_scale: float, deq_scale: float, kv_len: int, *,
+                                int8_pv: bool = False) -> torch.Tensor:
+    """The first, mma.sync version of `int8_flash_uniform`'s kernel
+    (`vp_flash_int8_uniform_fwd` of csrc/flash_int8_fwd.cu; 64-key tiles, the
+    natural V^T), same contract on CUDA tensors: a yardstick for
+    chip_smoke.py, counted apart."""
+    _check_uniform_args(q_i8, k_i8, v, kv_len)
+    return _launch_uniform(_MMA_SOURCE, _MMA_SIGNATURES, "flash_int8_uniform_mma", _MMA_BLK_K,
+                           False, q_i8, k_i8, v, sm_scale, deq_scale, kv_len, int8_pv)

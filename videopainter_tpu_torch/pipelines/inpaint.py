@@ -10,8 +10,9 @@ Counterpart of `videopainter_tpu/pipelines/inpaint.py`
  - strength-sliced timesteps, pure-noise or noised-video init;
  - the denoise loop (pipelines/common.py), then one VAE decode.
 
-Text embeddings are passed in (`prompt_embeds`); the T5 encoder is a later
-slice. Runs on CUDA unless `device="cpu"` is passed.
+A prompt is encoded by the pipeline's `text_encoder` (T5, see
+`models/text_encoder.py`), or its embeddings are passed in (`prompt_embeds`,
+which take precedence). Runs on CUDA unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..models.branch import CogVideoXBranch
 from ..models.dit import CogVideoXTransformer3D
+from ..models.text_encoder import T5TextEncoder
 from ..models.vae import AutoencoderKLCogVideoX
 from ..schedulers import CogVideoXDPMScheduler
 from .common import (DenoiseConfig, DenoiseInputs, get_strength_timesteps,
@@ -31,19 +33,46 @@ from .common import (DenoiseConfig, DenoiseInputs, get_strength_timesteps,
 
 
 class CogVideoXI2VDualInpaintPipeline:
-    """Holds the three models and the scheduler; the models' weights and
-    device are the pipeline's (`to` moves them)."""
+    """Holds the three models, the scheduler and optionally a text encoder;
+    the models' weights and device are the pipeline's (`to` moves them). The
+    text encoder stays where it was built."""
 
     def __init__(self, transformer: CogVideoXTransformer3D, branch: CogVideoXBranch,
-                 vae: AutoencoderKLCogVideoX, scheduler: CogVideoXDPMScheduler, *,
+                 vae: AutoencoderKLCogVideoX, scheduler: CogVideoXDPMScheduler,
+                 text_encoder: Optional[T5TextEncoder] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.transformer = transformer.to(self.device).eval()
         self.branch = branch.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.scheduler = scheduler
+        self.text_encoder = text_encoder
         self.vae_scale_factor_spatial = vae.cfg.spatial_compression_ratio
         self.vae_scale_factor_temporal = vae.cfg.temporal_compression_ratio
+
+    def encode_prompt(self, prompt: Optional[str], negative_prompt: str = "",
+                      max_sequence_length: int = 226) -> Tuple[torch.Tensor, torch.Tensor]:
+        """T5 embeddings of the prompt and the negative prompt, each
+        [1, max_sequence_length, d_model]. Requires a text encoder."""
+        if self.text_encoder is None:
+            raise ValueError("no text encoder configured; pass prompt_embeds instead")
+        return (self.text_encoder.encode(prompt, max_length=max_sequence_length),
+                self.text_encoder.encode(negative_prompt, max_length=max_sequence_length))
+
+    def _prompt_embeds(self, prompt, negative_prompt, prompt_embeds, negative_prompt_embeds,
+                       do_cfg: bool) -> torch.Tensor:
+        """The conditioning batch on the pipeline's device: given embeddings,
+        or the prompts encoded (at the DiT's text length) when none are given;
+        with CFG [negative, positive]."""
+        if prompt_embeds is None:
+            prompt_embeds, negative_prompt_embeds = self.encode_prompt(
+                prompt, negative_prompt, self.transformer.cfg.max_text_seq_length)
+        if not do_cfg:
+            return prompt_embeds.to(self.device)
+        if negative_prompt_embeds is None:
+            raise ValueError("CFG requires negative_prompt_embeds")
+        return torch.cat([negative_prompt_embeds.to(self.device),
+                          prompt_embeds.to(self.device)], dim=0)
 
     def _vae_encode(self, x, generator, sample_mode):
         dist = self.vae.encode(x)
@@ -114,7 +143,9 @@ class CogVideoXI2VDualInpaintPipeline:
         self, *,
         video: torch.Tensor,
         masks: torch.Tensor,
-        prompt_embeds: torch.Tensor,
+        prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        prompt_embeds: Optional[torch.Tensor] = None,
         negative_prompt_embeds: Optional[torch.Tensor] = None,
         image: Optional[torch.Tensor] = None,
         num_inference_steps: int = 50,
@@ -142,6 +173,8 @@ class CogVideoXI2VDualInpaintPipeline:
         """Returns the decoded video [B, T, H, W, 3] in [-1, 1] (numpy for
         output_type="np", a tensor for "pt", latents for "latent").
 
+        prompt / negative_prompt: encoded by the text encoder when no
+        prompt_embeds are given (prompt_embeds take precedence).
         use_flash: True for the hand-written bf16 flash-attention kernel,
         "int8" / "int8pv" for the int8 one (their plain versions on the CPU).
         """
@@ -150,12 +183,8 @@ class CogVideoXI2VDualInpaintPipeline:
                              "the any-length pipeline")
         do_cfg = guidance_scale > 1.0
         dev = self.device
-        if do_cfg:
-            if negative_prompt_embeds is None:
-                raise ValueError("CFG requires negative_prompt_embeds")
-            embeds = torch.cat([negative_prompt_embeds.to(dev), prompt_embeds.to(dev)], dim=0)
-        else:
-            embeds = prompt_embeds.to(dev)
+        embeds = self._prompt_embeds(prompt, negative_prompt, prompt_embeds,
+                                     negative_prompt_embeds, do_cfg)
 
         ts_full = self.scheduler.timesteps(num_inference_steps)
         timesteps, _ = get_strength_timesteps(ts_full, num_inference_steps, strength)

@@ -14,15 +14,20 @@ Counterpart of `videopainter_tpu/pipelines/inpaint_anyl.py`
    (`compress_capture`, exact) and can store them as per-token int8
    (`capture_int8`);
  - a latent frame accumulator is averaged over overlapping windows, then one
-   VAE decode.
+   VAE decode; or, with `stream_decode=True`, the frames that no later window
+   touches are decoded after each window (the VAE's streaming decoder,
+   bit-identical to the one-shot decode), optionally by a VAE on
+   `vae_device`, with the decoder's conv caches spilled to host memory
+   between chunks (`stream_cache_spill`; by default when no `vae_device` is
+   given, i.e. when the VAE shares the card with the resident DiT).
 
 The window loop is host-level Python; every window runs the same denoise
-loop. The streaming decode of the JAX package belongs to a later slice of the
-port: `stream_decode=True` raises.
+loop.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import replace as dc_replace
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -41,7 +46,9 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         self, *,
         video: torch.Tensor,                  # [B, T_total, H, W, 3]
         masks: torch.Tensor,                  # [B, T_total, H, W]
-        prompt_embeds: torch.Tensor,
+        prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        prompt_embeds: Optional[torch.Tensor] = None,
         negative_prompt_embeds: Optional[torch.Tensor] = None,
         image: Optional[torch.Tensor] = None,  # [B, H, W, 3] first frame (pixels)
         num_frames: int = 49,
@@ -67,6 +74,9 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         sequential_cfg: bool = False,
         skip_steps: Optional[Tuple[int, ...]] = None,  # the capture step always evaluates
         stream_decode: bool = False,
+        vae_device: Optional[Union[str, torch.device]] = None,   # the streaming decode's VAE
+        stream_cache_spill: Optional[bool] = None,  # None: spill the decoder's conv caches
+        # to host memory between chunks when no vae_device is given
         compress_capture: Optional[int] = 2048,  # bucket of the compressed cross-window
         # capture (ID-resample path only; exact, see common.capture_token_indices).
         # None / 0 keeps the full [L, 2B, S, D] state.
@@ -77,12 +87,8 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         dtype=torch.float32,
     ):
         """Returns the decoded video [B, T_total, H, W, 3] in [-1, 1] (numpy
-        for output_type="np", a tensor for "pt", the averaged latents for
-        "latent")."""
-        if stream_decode:
-            raise NotImplementedError(
-                "stream_decode belongs to a later slice of the port (the VAE's "
-                "streaming decoder); the windows are decoded in one VAE call")
+        for output_type="np", a tensor on the pipeline's device for "pt", the
+        averaged latents for "latent")."""
         dev = self.device
         b, total_frames = video.shape[0], video.shape[1]
         stride = stride if stride is not None else num_frames
@@ -101,13 +107,8 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
             num_frame_latents = (t_lat - 1) * n_windows + 1
 
         do_cfg = guidance_scale > 1.0
-        if do_cfg:
-            if negative_prompt_embeds is None:
-                raise ValueError("CFG requires negative_prompt_embeds")
-            embeds = torch.cat([negative_prompt_embeds.to(dev), prompt_embeds.to(dev)], dim=0)
-        else:
-            embeds = prompt_embeds.to(dev)
-        embeds = embeds.to(dtype)
+        embeds = self._prompt_embeds(prompt, negative_prompt, prompt_embeds,
+                                     negative_prompt_embeds, do_cfg).to(dtype)
 
         ts_full = self.scheduler.timesteps(num_inference_steps)
         timesteps, _ = get_strength_timesteps(ts_full, num_inference_steps, strength)
@@ -146,6 +147,21 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         # reads the full prev keys and values)
         can_compress = (bool(compress_capture) and id_pool_resample
                         and self.transformer.cfg.id_pool_resample_learnable and mask_add)
+
+        # streaming decode: the frames before the next window's start are final
+        # after a window, and are decoded then
+        streamer, decoded, emitted = None, [], 0
+        if stream_decode and output_type != "latent":
+            vae = self.vae
+            if vae_device is not None and torch.device(vae_device) != dev:
+                vae = copy.deepcopy(self.vae).to(vae_device)
+            spill = stream_cache_spill if stream_cache_spill is not None else vae_device is None
+            streamer = vae.stream_decoder(num_frame_latents, cache_spill=spill)
+            vae_dev = next(vae.parameters()).device
+
+        def averaged(s0: int, s1: int) -> torch.Tensor:
+            return accumulator[:, s0:s1] / torch.from_numpy(np.maximum(counts[s0:s1], 1.0)).to(
+                dev, accumulator.dtype)[None, :, None, None, None]
 
         prev_state: Optional[Dict[str, Any]] = None
         latents = None
@@ -201,11 +217,23 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
             accumulator[:, start:start + t_lat] += latents.to(dtype)
             counts[start:start + t_lat] += 1
 
-        accumulator = accumulator / torch.from_numpy(np.maximum(counts, 1.0)).to(
-            dev, accumulator.dtype)[None, :, None, None, None]
-        if output_type == "latent":
-            return accumulator
-        video_out = self.vae.decode(accumulator / self.vae.cfg.scaling_factor)
+            if streamer is not None:
+                final_upto = (num_frame_latents if window_idx == n_windows - 1
+                              else window_start(window_idx + 1))
+                if final_upto > emitted:
+                    chunk = averaged(emitted, final_upto) / self.vae.cfg.scaling_factor
+                    frames = streamer.feed(chunk.to(vae_dev))
+                    if frames is not None:
+                        decoded.append(frames)
+                    emitted = final_upto
+
+        if streamer is not None:
+            video_out = torch.cat(decoded, dim=1).to(dev)
+        else:
+            accumulator = averaged(0, num_frame_latents)
+            if output_type == "latent":
+                return accumulator
+            video_out = self.vae.decode(accumulator / self.vae.cfg.scaling_factor)
         video_out = torch.clamp(video_out, -1, 1)
         if output_type == "np":
             return video_out.float().cpu().numpy()

@@ -11,10 +11,11 @@ d = 64 by default) in three variants:
   - int8-qk-pv:  additionally P quantized to int8 (fixed scale 127, P is in
                  (0, 1]) and V int8, P.V accumulated in int32
 
-The int8 variants run the uniform-scale entry of `csrc/flash_int8_fwd.cu`
-(`ops.flash_attention_int8.int8_flash_uniform`). Prints each variant's time
-and rate, the int8-qk variant's error against bf16, and the card's name and
-power limit.
+The int8 variants run the uniform-scale Hopper kernel
+`csrc/flash_int8_uniform_wgmma.cu` (`ops.flash_attention_int8.int8_flash_uniform`).
+Prints each variant's time and rate (4 B H S^2 d operations over the time,
+both products counted) and its speed-up over bf16, the int8-qk variant's
+error against bf16, and the card's name and power limit.
 
     python -m videopainter_tpu_torch.tools.bench_int8_attn [--iters 20] [--bh 96] [--seq 17776]
 """

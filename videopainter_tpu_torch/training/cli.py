@@ -15,8 +15,9 @@ Usage (branch SFT):
         --max_train_steps 10000 --learning_rate 1e-5
 
 ID-LoRA adds:  --mode lora --cogvideox_branch_name_or_path runs/branch/export
-Text embeds: supply --prompt_embeds_file (precomputed); the T5 encoder is not
-ported yet, so running without the file raises.
+Text embeds: --prompt_embeds_file (precomputed, one embedding for every
+clip), or else each caption is encoded by the local T5 under
+<pretrained_model_name_or_path>/text_encoder (tokenizer files beside it).
 """
 
 from __future__ import annotations
@@ -215,6 +216,7 @@ def main(argv=None):
                           load_config)
     from ..models import AutoencoderKLCogVideoX, CogVideoXBranch, CogVideoXTransformer3D
     from ..models.lora import init_lora_params
+    from ..models.text_encoder import T5TextEncoder, load_prompt_embeds
     from ..schedulers import CogVideoXDDIMScheduler
     from .data import DataConfig, InpaintingCollator, VideoInpaintingDataset, data_loader
     from .masks import MaskTransformConfig
@@ -249,7 +251,7 @@ def main(argv=None):
                         device, frozen_dtype)
     vae = _load(AutoencoderKLCogVideoX(vcfg), os.path.join(root, "vae"), device, frozen_dtype)
     if args.enable_slicing:
-        raise NotImplementedError("--enable_slicing: VAE batch slicing is not ported")
+        vae.enable_slicing()
     if args.enable_tiling:
         vae.enable_tiling()
 
@@ -307,15 +309,15 @@ def main(argv=None):
     if args.scale_lr:
         args.learning_rate *= args.gradient_accumulation_steps * args.train_batch_size
 
-    # prompt embedding: precomputed (the T5 encoder is not ported yet)
-    if not args.prompt_embeds_file:
-        raise NotImplementedError("the T5 text encoder is not ported yet: pass "
-                                  "--prompt_embeds_file")
-    arr = np.load(args.prompt_embeds_file)
-    if hasattr(arr, "files"):
-        arr = arr[arr.files[0]]
-    fixed = torch.as_tensor(arr[None] if arr.ndim == 2 else arr).to(device, batch_dtype)
-    embed_fn = lambda prompts: fixed.repeat(len(prompts), 1, 1)
+    # prompt embedding: precomputed or T5
+    if args.prompt_embeds_file:
+        fixed = load_prompt_embeds(args.prompt_embeds_file).to(device, batch_dtype)
+        embed_fn = lambda prompts: fixed.repeat(len(prompts), 1, 1)
+    else:
+        te = T5TextEncoder.from_local(os.path.join(root, "text_encoder"),
+                                      max_length=tcfg_m.max_text_seq_length, device=device)
+        embed_fn = lambda prompts: torch.cat([te.encode(p) for p in prompts]).to(
+            device, batch_dtype)
     to_dev = lambda x: torch.as_tensor(np.asarray(x)).to(device, batch_dtype)
 
     cache_mode = None
