@@ -60,7 +60,22 @@ Phases (each fails the run loudly, exit code != 0):
     predicts; finite losses, moved parameters, no gradient on frozen weights;
  6. one ID-LoRA step at full width on a backbone cut to 4 layers (rank 256,
     ID resampling: 35,552 keys in forward and backward);
- 7. a small training step on the card, the kernels against exact attention.
+ 7. a small training step on the card, the kernels against exact attention;
+ 8. the inference CLI (`videopainter_tpu_torch.infer.inpaint`) from disk at
+    full width: phase 2's models and a seeded rank-256 adapter written as
+    diffusers checkpoints (the 42-layer DiT in bf16 shards), read back by
+    `build_pipeline` bit for bit, then the CLI's compute on an 81-frame
+    480x720 clip with a moving mask (frame 0 pre-inpainted at T=1 over 30
+    steps, 2 windows x 2 steps, CFG 6, ID resampling: the bf16 flash forward
+    over 35,552 keys), bit-equal to the direct pipeline calls; counts zeroed
+    before and read after; `main(argv)` on a CSV, masks and an mp4 where cv2
+    imports;
+ 9. the variants at full width on phase 2's backbone and VAE: self-guidance
+    (49x480x720, 2 steps, two 42-layer passes a step) and the SFT any-length
+    baseline (81 frames, 2 windows x 2 steps), launches held to the code's;
+10. the small variant and generation pipelines on the card against exact
+    attention, the CLI's int8 modes at a tiny width against the int8 kernel's
+    plain version, a fused to_qkv model against the unfused one.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -226,8 +241,45 @@ def phase_kernels(torch, fa):
     if not ms < ms_previous:
         raise AssertionError(f"flash_fwd {ms:.3f} ms is not faster than the mma.sync kernel "
                              f"{ms_previous:.3f} ms")
+    del q, k, v, out
+
+    # the inference CLI's two other calls, with operands built as
+    # ops/attention.joint_attention builds them: (a) ID resampling, q a view
+    # of the [B, S, H*D] projection, K / V contiguous from torch.cat of the
+    # projected keys and their masked copy (2 S keys); (b) the first-frame
+    # pass at T = 1 (226 + 1,350 tokens), heads as views
+    def proj():
+        return torch.randn((b, s, h * d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def heads(t):
+        return t.view(t.shape[0], t.shape[1], h, d).transpose(1, 2)
+
+    q_flat, k_flat, v_flat = proj(), proj(), proj()
+    keep = (torch.rand((b, s, 1), generator=gen, device="cuda") < 0.25).to(torch.bfloat16)
+    resample = (heads(q_flat), torch.cat([heads(k_flat), heads(k_flat * keep)], dim=2),
+                torch.cat([heads(v_flat), heads(v_flat * keep)], dim=2))
+    del q_flat, k_flat, v_flat
+    extra = {}
+    for name, (q, k, v) in (("ID resample", resample), ("first frame T=1",
+                                                        qkv(b, h, 226 + 1350, 226 + 1350))):
+        s_q, s_k = q.shape[2], k.shape[2]
+        out, _ = fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None, False)
+        err, tol = flash_err(out, fa.flash_attention_reference(q, k, v, d ** -0.5))
+        finite = bool(torch.isfinite(out).all())
+        call_ms = cuda_time_ms(lambda: fa.flash_fwd_cuda(q, k, v, d ** -0.5, s_k, None, False),
+                               3)
+        call_bound, _ = flash_bound_ms(b, h, s_q, s_k, d)
+        log(f"flash_fwd {name} [{b}x{h}, {s_q} q, {s_k} keys] bf16: max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}), finite {finite}; kernel {call_ms:.3f} ms "
+            f"({100 * call_bound / call_ms:.1f} % of bound {call_bound:.3f} ms)")
+        if not (err <= tol and finite):
+            raise AssertionError(f"flash_fwd disagrees with its plain version ({name})")
+        worst = max(worst, err)
+        extra[f"ms_{'resample' if s_k == 2 * s else 'first_frame'}"] = call_ms
+        del q, k, v, out
+    del resample
     return {"max_abs_err": worst, "ms": ms, "ms_previous": ms_previous, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by, **extra}
 
 
 def bwd_bound_ms(n_products, b, h, s_q, n_keys, d, n_out_rows):
@@ -817,7 +869,9 @@ def phase_pipeline(torch, kernels):
     if launches["flash_fwd"] != expected:
         raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} times, "
                              f"expected {expected}")
-    return launches
+    del vae.encode, vae.decode   # the timing wrappers
+    pipe.text_encoder = None   # T5 goes; phases 9 and 8 reuse the pipeline's models
+    return launches, pipe
 
 
 def _tensors(tree):
@@ -827,6 +881,518 @@ def _tensors(tree):
 
 
 STREAM_PSNR_DB = 60.0   # streamed against one-shot frames, should cuDNN pick another algorithm
+
+
+IMPORTS = ("cv2", "pandas", "safetensors", "transformers")
+
+
+def optional_imports():
+    """{name: version or None} of the optional readers and libraries."""
+    import importlib
+    out = {}
+    for name in IMPORTS:
+        try:
+            out[name] = getattr(importlib.import_module(name), "__version__", "?")
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def write_checkpoint(root, transformer, branch, vae, lora=None, shard_bytes=None):
+    """The diffusers layout the inference CLI reads, written by the port's
+    exports: <root>/model/transformer (in its own dtype, sharded at
+    `shard_bytes`), <root>/model/vae, <root>/branch, and with `lora` the
+    adapter's pytorch_lora_weights.safetensors in <root>/lora. Returns the
+    bytes written."""
+    import os
+    from videopainter_tpu_torch.training import checkpoint as ckpt
+
+    n = ckpt.export_transformer_pretrained(
+        transformer, transformer.cfg.to_dict(), os.path.join(root, "model", "transformer"),
+        dtype=transformer.proj_out.weight.dtype, max_shard_bytes=shard_bytes)
+    n += ckpt.export_vae_pretrained(vae, vae.cfg.to_dict(), os.path.join(root, "model", "vae"))
+    n += ckpt.export_branch_pretrained(branch, branch.cfg.to_dict(), os.path.join(root, "branch"))
+    if lora is not None:
+        n += ckpt.export_lora_weights(lora, os.path.join(root, "lora"))
+    return n
+
+
+def moving_mask_clip(torch, generator, frames, height, width):
+    """uint8 frames [T, H, W, 3] and a rectangular hole (half of each side)
+    that moves right by 2 pixels a frame, as numpy."""
+    import numpy as np
+    video = torch.randint(0, 256, (frames, height, width, 3), generator=generator,
+                          device=generator.device, dtype=torch.uint8).cpu().numpy()
+    masks = np.zeros((frames, height, width), np.uint8)
+    for t in range(frames):
+        x0 = width // 8 + 2 * t
+        masks[t, height // 4:3 * height // 4, x0:x0 + width // 2] = 1
+    return video, masks
+
+
+CLI_STEPS, CLI_FIRST_FRAME_STEPS = 2, 30   # the hook's default (infer/first_frame.py)
+CKPT_SHARD_BYTES = 5 * 10 ** 9
+
+
+def phase_cli(torch, kernels, pipe):
+    """Phase 8: the inference CLI from disk at full width. Writes phase 2's
+    models (42-layer bf16 DiT in shards, the VAE, the 2-layer branch) and a
+    seeded rank-256 adapter as diffusers checkpoints, builds the pipeline
+    with `infer.inpaint.build_pipeline` (the loaded state dicts held bit for
+    bit to the saved ones, the adapter merged into both alike), runs the
+    CLI's compute on an 81-frame 480x720 clip with a moving mask (first frame
+    pre-inpainted at T=1, 2 windows x 2 steps, ID resampling: B1 over 35,552
+    keys), holds it bit for bit to a direct call of the any-length pipeline,
+    and where cv2 imports runs `main(argv)` on files the phase writes.
+    Consumes `pipe`'s models. Returns the launch counts of the CLI's compute."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from videopainter_tpu_torch.convert import load_safetensors_dir
+    from videopainter_tpu_torch.flagship import LORA_RANK, random_lora
+    from videopainter_tpu_torch.infer import inpaint as cli
+    from videopainter_tpu_torch.infer.first_frame import make_self_first_frame_inpaint
+    from videopainter_tpu_torch.models.lora import (LORA_ALPHA, convert_peft_lora_state_dict,
+                                                    merge_lora)
+
+    imports = optional_imports()
+    log("optional imports: " + ", ".join(f"{k} {v or 'missing'}" for k, v in imports.items()))
+    gen = torch.Generator(device="cuda").manual_seed(808)
+    tcfg = pipe.transformer.cfg
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_ckpt_", dir="build")
+    try:
+        lora = random_lora(gen, pipe.transformer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(root, pipe.transformer, pipe.branch, pipe.vae, lora,
+                                  shard_bytes=CKPT_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        del lora
+        shards = sorted(os.listdir(os.path.join(root, "model", "transformer")))
+        embeds = torch.randn((1, tcfg.max_text_seq_length, tcfg.text_embed_dim), generator=gen,
+                             device="cuda").cpu().numpy()
+        np.save(os.path.join(root, "embeds.npy"), embeds)
+        video_u8, masks = moving_mask_clip(torch, gen, 81, 480, 720)
+        argv = ["--model_path", os.path.join(root, "model"),
+                "--inpainting_branch", os.path.join(root, "branch"),
+                "--id_adapter", os.path.join(root, "lora"),
+                "--meta_file_path", os.path.join(root, "meta.csv"),
+                "--output_path", os.path.join(root, "out"),
+                "--prompt_embeds", os.path.join(root, "embeds.npy"),
+                "--use_flash", "--replace_gt", "--mask_add", "--num_frames", "49",
+                "--overlap_frames", "17", "--num_inference_steps", str(CLI_STEPS),
+                "--first_frame_inpaint", "self", "--long_video", "--seed", "0"]
+        args = cli.get_args(argv)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = cli.load_pipeline(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"CLI checkpoint: {nbytes} bytes ({nbytes / 1e9:.3f} GB: transformer in "
+            f"{len(shards) - 2} shards of at most {CKPT_SHARD_BYTES} bytes, VAE, branch, rank-"
+            f"{LORA_RANK} adapter in float32) written in {write_s:.3f} s "
+            f"({nbytes / write_s / 1e9:.3f} GB/s); build_pipeline read and placed it in "
+            f"{load_s:.3f} s ({nbytes / load_s / 1e9:.3f} GB/s)")
+        # the saved weights, with the adapter merged as build_pipeline merges it
+        adapter = convert_peft_lora_state_dict(load_safetensors_dir(os.path.join(root, "lora")),
+                                               tcfg.num_layers, rank=LORA_RANK)
+        merge_lora(pipe.transformer, {t: {k: v.to(torch.bfloat16) for k, v in ab.items()}
+                                      for t, ab in adapter.items()},
+                   alpha=LORA_ALPHA, rank=LORA_RANK)
+        del adapter
+        differ = [f"{name}.{k}" for name in ("transformer", "branch", "vae")
+                  for k, v in getattr(pipe, name).state_dict().items()
+                  if not torch.equal(getattr(loaded, name).state_dict()[k], v)]
+        log(f"loaded state dicts equal to the saved ones bit for bit (the adapter merged into "
+            f"both): {not differ}")
+        if differ:
+            raise AssertionError(f"loaded weights differ from the saved ones: {differ[:5]}")
+        pipe.transformer = pipe.branch = pipe.vae = None
+        free_cuda(torch)
+
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True   # the CLI's run and the direct call
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out01, _, _ = cli.run_inpaint(loaded, args, video_u8, masks, "")
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+
+            # the same work as direct calls, written out here: the first-frame
+            # hook, then the any-length pipeline with the CLI's arguments
+            masks_f = masks.astype(np.float32)
+            emb = torch.from_numpy(embeds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = make_self_first_frame_inpaint(
+                loaded, seed=0, use_flash=True, dtype=torch.bfloat16, prompt_embeds=emb)(
+                video_u8[0].astype(np.float32) / 255 * (1 - masks_f[0][..., None]),
+                masks_f[0], "")
+            first_s = time.perf_counter() - t0
+            enc_s, dec_s = [], []
+            loaded.vae.encode = timed_calls(torch, loaded.vae.encode, enc_s)
+            loaded.vae.decode = timed_calls(torch, loaded.vae.decode, dec_s)
+            stamps = []
+
+            def progress(i, n):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+            t0 = time.perf_counter()
+            direct = loaded(
+                image=torch.from_numpy(np.ascontiguousarray(first, np.float32)).cuda()[None] * 2 - 1,
+                video=torch.from_numpy(video_u8.astype(np.float32) / 255).cuda()[None] * 2 - 1,
+                masks=torch.from_numpy(masks_f).cuda()[None], num_frames=49, stride=32,
+                num_inference_steps=CLI_STEPS, guidance_scale=6.0, use_dynamic_cfg=True,
+                replace_gt=True, mask_add=True, prev_clip_weight=0.0, id_pool_resample=True,
+                use_flash=True, sequential_cfg=False, skip_steps=None, capture_int8=False,
+                generator=torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16,
+                prompt_embeds=emb, negative_prompt_embeds=torch.zeros_like(emb),
+                progress_fn=progress)
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t0
+            steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+            del loaded.vae.encode, loaded.vae.decode   # the timing wrappers
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+        direct01 = (np.asarray(direct)[0] / 2 + 0.5).clip(0, 1)
+        same = np.array_equal(out01, direct01)
+        per_layer = tcfg.num_layers + loaded.branch.cfg.num_layers
+        expected = per_layer * (CLI_FIRST_FRAME_STEPS + 2 * CLI_STEPS)
+        finite = bool(np.isfinite(out01).all())
+        log(f"CLI compute (run_inpaint, {tcfg.num_layers}-layer DiT from disk, 81x480x720, "
+            f"first frame at T=1 over {CLI_FIRST_FRAME_STEPS} steps, 2 windows x {CLI_STEPS} "
+            f"steps, CFG 6, ID resampling over {2 * 17776} keys): out {out01.shape} finite "
+            f"{finite}, {cli_s:.3f} s wall, peak memory {peak / 2**30:.2f} GiB; flash_fwd "
+            f"launches {launches['flash_fwd']} (expected {expected} = {per_layer} layers x "
+            f"({CLI_FIRST_FRAME_STEPS} + 2 x {CLI_STEPS}) steps); equal to the direct calls "
+            f"bit for bit: {same} (max |diff| {np.abs(out01 - direct01).max():.3e})")
+        log(f"direct calls: first-frame pass (T=1, {CLI_FIRST_FRAME_STEPS} steps, its VAE "
+            f"encodes and decode) {first_s:.3f} s; any-length call {direct_s:.3f} s: s per "
+            f"denoise step (the first of each window includes its 3 tiled VAE encodes, "
+            + ", ".join(f"{x:.3f} s" for x in enc_s) + ") " + ", ".join(f"{x:.3f}" for x in steps)
+            + ", tiled VAE decode of the 81 frames " + ", ".join(f"{x:.3f} s" for x in dec_s))
+        if not (finite and out01.shape == (81, 480, 720, 3)):
+            raise AssertionError(f"CLI output {out01.shape} finite={finite}")
+        if not same:
+            raise AssertionError("the CLI's compute differs from the direct pipeline call")
+        expect_all = dict.fromkeys(launches, 0)
+        expect_all["flash_fwd"] = expected
+        if launches != expect_all:
+            raise AssertionError(f"CLI launches {launches}, expected {expect_all}")
+
+        if imports["cv2"] is not None:
+            import cv2
+            del loaded, direct
+            free_cuda(torch)
+            vpath = os.path.join(root, "clip.mp4")
+            vw = cv2.VideoWriter(vpath, cv2.VideoWriter_fourcc(*"mp4v"), 8, (720, 480))
+            for f in video_u8:
+                vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+            vw.release()
+            np.savez(os.path.join(root, "all_masks.npz"), **{"0": masks})
+            with open(os.path.join(root, "meta.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["path", "fps", "start_frame", "end_frame", "mask_id", "caption"])
+                w.writerow([vpath, 8, 0, 0, 0, "a synthetic clip"])
+            t0 = time.perf_counter()
+            frames = cli.main(argv)
+            main_s = time.perf_counter() - t0
+            cap = cv2.VideoCapture(os.path.join(root, "out", "video_0.mp4"))
+            n_read, shape = 0, None
+            while True:
+                ok, fr = cap.read()
+                if not ok:
+                    break
+                n_read, shape = n_read + 1, fr.shape
+            cap.release()
+            log(f"CLI main(argv) on a CSV, all_masks.npz and an mp4: {main_s:.3f} s (the "
+                f"build from disk included); out {frames.shape}, side-by-side mp4 of {n_read} "
+                f"frames of {shape}")
+            if not (np.isfinite(frames).all() and n_read == 81 and shape == (480, 3 * 720, 3)):
+                raise AssertionError("the CLI's side-by-side video is not 81 frames of "
+                                     "480 x 2160")
+        else:
+            log("CLI main(argv): cv2 is missing, so the file I/O is not run (the compute above "
+                "ran all the same)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def t2v_view(transformer):
+    """Phase 2's backbone as CogVideoX-5b T2V (in_channels 16, the SFT
+    baseline's base): its modules shared, the patch embed reading the first
+    16 of its 32 input channels (the noisy latents' slot)."""
+    import dataclasses
+    from videopainter_tpu_torch.pipelines import share_transformer
+    return share_transformer(transformer, transformer.patch_embed.proj.weight[:, :16],
+                             dataclasses.replace(transformer.cfg, in_channels=16))
+
+
+def phase_variants(torch, kernels, pipe):
+    """Phase 9: the variants at full width on phase 2's backbone and VAE: the
+    self-guidance baseline (49x480x720, 2 steps, guidance 1.0: two 42-layer
+    passes a step, the guidance pass capturing every layer's states) and the
+    SFT any-length baseline (phase 2's blocks under a patch embed widened by
+    `init_sft_from_transformer`; 81 frames, 2 windows x 2 steps, CFG 6).
+    Returns the launch counts of the two runs."""
+    from videopainter_tpu_torch.flagship import FLAGSHIP_CALL, random_clip
+    from videopainter_tpu_torch.pipelines import (CogVideoXI2VInpaintAnyLPipeline,
+                                                  CogVideoXSelfGuidanceInpaintPipeline,
+                                                  init_sft_from_transformer)
+
+    gen = torch.Generator(device="cuda").manual_seed(909)
+    n_layers = pipe.transformer.cfg.num_layers
+    captures = []
+
+    def on_forward(module, args, out):
+        if out.hidden_states_list is not None:
+            captures.append(out.hidden_states_list.numel()
+                            * out.hidden_states_list.element_size())
+
+    def run(name, p, clip, **kw):
+        stamps = []
+
+        def progress(i, n):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = p(**clip, generator=gen, output_type="pt", progress_fn=progress,
+                dtype=torch.bfloat16, use_flash=True, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+        finite = bool(torch.isfinite(out).all())
+        log(f"{name}: out {tuple(out.shape)} finite {finite}; s per step (the first of each "
+            f"window includes its VAE encodes) " + ", ".join(f"{x:.3f}" for x in steps)
+            + f"; total {total:.3f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_fwd launches "
+            f"{launches['flash_fwd']}")
+        if not finite:
+            raise AssertionError(f"{name}: output not finite")
+        return launches
+
+    sched = pipe.scheduler
+    sg = CogVideoXSelfGuidanceInpaintPipeline(pipe.transformer, pipe.vae, sched)
+    clip = random_clip(gen, frames=49)
+    hook = pipe.transformer.register_forward_hook(on_forward)
+    try:
+        sg_launches = run("self-guidance, 49x480x720, 2 steps, guidance 1.0", sg, clip,
+                          num_inference_steps=2, guidance_scale=1.0)
+    finally:
+        hook.remove()
+    log(f"self-guidance capture per step: {captures[0]} bytes ({captures[0] / 2**30:.3f} GiB, "
+        f"{n_layers} layers x [1, 17776, 3072] bf16), {len(captures)} captures")
+    expected = {"flash_fwd": 2 * 2 * n_layers}
+    del clip, sg
+    free_cuda(torch)
+
+    sft = init_sft_from_transformer(t2v_view(pipe.transformer))
+    assert sft.transformer_blocks is pipe.transformer.transformer_blocks
+    anyl = CogVideoXI2VInpaintAnyLPipeline(sft, pipe.vae, sched)
+    clip = random_clip(gen, frames=81)
+    sft_launches = run("SFT any-length, 81x480x720, 2 windows x 2 steps, CFG 6", anyl, clip,
+                       num_inference_steps=2, num_frames=49, stride=32,
+                       **{k: FLAGSHIP_CALL[k] for k in ("guidance_scale", "use_dynamic_cfg",
+                                                         "replace_gt", "mask_add")})
+    del clip, anyl, sft
+    free_cuda(torch)
+    total = {k: sg_launches[k] + sft_launches[k] for k in sg_launches}
+    want = dict.fromkeys(total, 0)
+    want["flash_fwd"] = expected["flash_fwd"] + 2 * 2 * n_layers
+    log(f"variant launches: self-guidance {sg_launches['flash_fwd']} (expected "
+        f"{expected['flash_fwd']} = 2 passes x 2 steps x {n_layers}), SFT any-length "
+        f"{sft_launches['flash_fwd']} (expected {2 * 2 * n_layers} = 2 windows x 2 steps x "
+        f"{n_layers})")
+    if total != want:
+        raise AssertionError(f"variant launches {total}, expected {want}")
+    return total
+
+
+def phase_small_variants(torch, kernels):
+    """Phase 10: small variant and generation pipelines (head dim 64) on the
+    card, the bf16 kernel path against the exact path; the CLI's compute at a
+    tiny width from tiny checkpoints with `--int8 --int8_attn` and with
+    `--int8_pv`, against the same CLI on the int8 kernel's plain version; a
+    fused to_qkv model against the unfused one, bf16 and W8A8."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from videopainter_tpu_torch import pipelines as P
+    from videopainter_tpu_torch.config import (BranchConfig, SchedulerConfig,
+                                               TransformerConfig, VAEConfig)
+    from videopainter_tpu_torch.flagship import FLAGSHIP_CALL, random_lora
+    from videopainter_tpu_torch.infer import inpaint as cli
+    from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBranch,
+                                               CogVideoXTransformer3D)
+    from videopainter_tpu_torch.ops import attention, fuse_qkv_projections
+    from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
+    from videopainter_tpu_torch.quantize import quantize_transformer_int8
+    from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
+
+    gen = torch.Generator(device="cuda").manual_seed(1010)
+    small = dict(out_channels=16, attention_head_dim=64, sample_height=8, sample_width=12)
+    t2v_cfg = TransformerConfig.tiny(in_channels=16, **small)
+    i2v_cfg = TransformerConfig.tiny(in_channels=32, **small)
+
+    def build(ctor, dtype=torch.bfloat16):
+        return ctor(device="meta", dtype=dtype).to_empty(device="cuda").init_random_(gen)
+
+    vae = build(lambda **kw: AutoencoderKLCogVideoX(VAEConfig.tiny(latent_channels=16), **kw))
+    sched = CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference())
+    t2v = build(lambda **kw: CogVideoXTransformer3D(t2v_cfg, **kw))
+    i2v = build(lambda **kw: CogVideoXTransformer3D(i2v_cfg, **kw))
+    sft = build(lambda **kw: P.make_sft_inpaint_transformer(t2v_cfg, **kw))
+    branch = build(lambda **kw: CogVideoXBranch(BranchConfig.from_transformer(t2v_cfg), **kw))
+    branch.init_from_transformer(t2v)
+    for lin in branch.branch_blocks:   # non-zero projections: the branch acts
+        torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+    pipes = {"t2v dual": P.CogVideoXDualInpaintPipeline(t2v, branch, vae, sched),
+             "plain": P.CogVideoXInpaintPipeline(t2v, vae, sched),
+             "image2video": P.CogVideoXImageToVideoInpaintPipeline(i2v, vae, sched),
+             "sft": P.CogVideoXSFTInpaintPipeline(sft, vae, sched),
+             "t2v generation": P.CogVideoXPipeline(t2v, vae, sched),
+             "i2v generation": P.CogVideoXImageToVideoPipeline(i2v, vae, sched),
+             "v2v generation": P.CogVideoXVideoToVideoPipeline(t2v, vae, sched)}
+    video = torch.rand((1, 9, 64, 96, 3), generator=gen, device="cuda") * 2 - 1
+    masks = torch.zeros((1, 9, 64, 96), device="cuda")
+    masks[:, :, 16:48, 24:72] = 1
+    embeds = torch.randn((1, 5, 12), generator=gen, device="cuda")
+    noise = torch.randn((1, 3, 8, 12, 16), generator=gen, device="cuda")
+    dpm = torch.randn((2, 1, 3, 8, 12, 16), generator=gen, device="cuda")
+    base = dict(prompt_embeds=embeds, negative_prompt_embeds=torch.zeros_like(embeds),
+                num_inference_steps=2, guidance_scale=6.0, use_dynamic_cfg=True,
+                vae_sample_mode="mode", init_noise=noise, dpm_noises=dpm, output_type="pt",
+                dtype=torch.bfloat16)
+    total = 0
+    for name, p in pipes.items():
+        kw = dict(base)
+        if name.startswith(("t2v gen", "i2v gen")):
+            kw.update(num_frames=9, height=64, width=96)
+        elif name.startswith("v2v"):
+            kw.update(video=video, num_inference_steps=4, strength=0.5)
+        else:
+            kw.update(video=video, masks=masks, mask_add=True, replace_gt=True)
+        if name in ("image2video", "i2v generation"):
+            kw["image"] = video[:, 0]
+        kernels.reset_launches()
+        outs = {flash: p(use_flash=flash, **kw).float() for flash in (True, False)}
+        # one call a layer a step (CFG batched); 2 steps (V2V: 4 at strength 0.5)
+        per_step = p.transformer.cfg.num_layers + (p.branch.cfg.num_layers if p.branch else 0)
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want["flash_fwd"] = 2 * per_step
+        got = dict(kernels.LAUNCHES)
+        total += got["flash_fwd"]
+        psnr = psnr_db(outs[True], outs[False])
+        finite = bool(torch.isfinite(outs[True]).all())
+        log(f"small {name}: kernel path vs exact path PSNR {psnr:.1f} dB (min "
+            f"{SMALL_PSNR_DB}), finite {finite}; flash_fwd launches {got['flash_fwd']} "
+            f"(expected {want['flash_fwd']} = 2 steps x {per_step} layers)")
+        if not (finite and psnr >= SMALL_PSNR_DB):
+            raise AssertionError(f"small {name}: the kernel path disagrees with the exact path")
+        if got != want:
+            raise AssertionError(f"small {name}: launches {got}, expected {want}")
+    log(f"flash_fwd launches of the small variants: {total}")
+
+    # the fused to_qkv slot: the dual pipeline fused against unfused, bf16 then W8A8
+    unfused = P.CogVideoXI2VDualInpaintPipeline(i2v, build(lambda **kw: CogVideoXBranch(
+        BranchConfig.from_transformer(i2v_cfg), **kw)), vae, sched)
+    fused = P.CogVideoXI2VDualInpaintPipeline(
+        fuse_qkv_projections(copy.deepcopy(unfused.transformer)),
+        fuse_qkv_projections(copy.deepcopy(unfused.branch)), vae, sched)
+    kw = dict(base, video=video, masks=masks, image=video[:, 0] * (1 - masks[:, 0, ..., None]),
+              mask_add=True, replace_gt=True)
+    for mode, flash in (("bf16", True), ("W8A8", "int8")):
+        if mode == "W8A8":
+            for p in (unfused, fused):
+                quantize_transformer_int8(p.transformer, free_source=True)
+                quantize_transformer_int8(p.branch, free_source=True)
+        a, b = unfused(use_flash=flash, **kw).float(), fused(use_flash=flash, **kw).float()
+        psnr = psnr_db(b, a)
+        log(f"small fused to_qkv vs unfused, {mode}: PSNR {psnr:.1f} dB (min {SMALL_PSNR_DB}), "
+            f"equal {torch.equal(a, b)}, max |diff| {(a - b).abs().max().item():.3e}")
+        if not (bool(torch.isfinite(b).all()) and psnr >= SMALL_PSNR_DB):
+            raise AssertionError(f"fused to_qkv disagrees with the unfused model ({mode})")
+    del unfused, fused
+
+    # the CLI's compute at a tiny width from checkpoints on disk, int8 modes
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_small_", dir="build")
+    try:
+        rs_cfg = TransformerConfig.tiny(in_channels=32, id_pool_resample_learnable=True, **small)
+        dit = build(lambda **kw: CogVideoXTransformer3D(rs_cfg, **kw))
+        br = build(lambda **kw: CogVideoXBranch(BranchConfig.from_transformer(rs_cfg), **kw))
+        for lin in br.branch_blocks:
+            torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+        write_checkpoint(root, dit, br, vae, random_lora(gen, dit))
+        np.save(os.path.join(root, "embeds.npy"), embeds.cpu().numpy())
+        video_u8, mask_u8 = moving_mask_clip(torch, gen, 17, 64, 96)
+        argv = ["--model_path", os.path.join(root, "model"),
+                "--inpainting_branch", os.path.join(root, "branch"),
+                "--id_adapter", os.path.join(root, "lora"), "--meta_file_path", "unused.csv",
+                "--prompt_embeds", os.path.join(root, "embeds.npy"), "--height", "64",
+                "--width", "96", "--num_frames", "9", "--overlap_frames", "1",
+                "--num_inference_steps", "2", "--replace_gt", "--mask_add", "--int8"]
+        def cli_frames(args):
+            out = cli.run_inpaint(cli.load_pipeline(args), args, video_u8, mask_u8, "")[0]
+            return torch.from_numpy(out * 2 - 1)
+
+        # the bf16 weights with exact attention: the yardstick that shows the
+        # comparisons below can tell the int8 path from another
+        exact = cli_frames(cli.get_args([a for a in argv if a != "--int8"]))
+        # 2 windows (17 frames, 9 a window, overlap 1) x 2 steps, one call a
+        # layer (ID resampling: 2 S keys in the same call)
+        want8 = 2 * 2 * (rs_cfg.num_layers + br.cfg.num_layers)
+        wrapper = attention.flash_attention_int8
+        for flags in (["--int8_attn"], ["--int8_pv"]):
+            args = cli.get_args(argv + flags)
+            outs, n8 = [], []
+            for plain in (False, True):
+                attention.flash_attention_int8 = (fa8.flash_attention_int8_reference if plain
+                                                  else wrapper)
+                try:
+                    kernels.reset_launches()
+                    outs.append(cli_frames(args))
+                    n8.append(kernels.LAUNCHES["flash_int8_fwd"])
+                finally:
+                    attention.flash_attention_int8 = wrapper
+            psnr = psnr_db(*outs)
+            log(f"small CLI {' '.join(['--int8'] + flags)}: int8 kernel vs its plain version "
+                f"PSNR {psnr:.1f} dB (min {SMALL_PSNR_DB}), equal {torch.equal(*outs)}; "
+                f"flash_int8_fwd launches {n8[0]} (expected {want8}), on the plain version "
+                f"{n8[1]} (expected 0); against bf16 weights with exact attention: kernel "
+                f"{psnr_db(outs[0], exact):.1f} dB, plain version {psnr_db(outs[1], exact):.1f} "
+                "dB (no limit)")
+            if not (bool(torch.isfinite(outs[0]).all()) and psnr >= SMALL_PSNR_DB):
+                raise AssertionError(f"small CLI {flags}: the int8 kernel path disagrees with "
+                                     "its plain version")
+            if n8 != [want8, 0]:
+                raise AssertionError(f"small CLI {flags}: flash_int8_fwd launches {n8}, "
+                                     f"expected [{want8}, 0]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_anyl_int8(torch, kernels):
@@ -1332,13 +1898,21 @@ def main() -> int:
     stats = timed_phase("1 bf16 forward", phase_kernels, torch, fa)
     b2, b3 = timed_phase("1 backward", phase_bwd_kernels, torch, fa)
     b4 = timed_phase("1 int8", phase_int8_kernels, torch, fa, fa8)
-    b5 = timed_phase("1 uniform int8 (new)", phase_uniform_kernels, torch, fa8)
+    b5 = timed_phase("1 uniform int8", phase_uniform_kernels, torch, fa8)
     free()
-    launches = timed_phase("2 single clip from a prompt (T5 new)", phase_pipeline, torch,
-                           kernels)
+    launches, pipe = timed_phase("2 single clip from a prompt", phase_pipeline, torch, kernels)
     check_no_yardstick(launches, "phase 2")
     free()
-    anyl_launches = timed_phase("3 any-length int8, streamed decode (new)", phase_anyl_int8,
+    variant_launches = timed_phase("9 variants at full width (new)", phase_variants, torch,
+                                   kernels, pipe)
+    check_no_yardstick(variant_launches, "phase 9")
+    free()
+    cli_launches = timed_phase("8 inference CLI from disk (new)", phase_cli, torch, kernels,
+                               pipe)
+    check_no_yardstick(cli_launches, "phase 8")
+    del pipe
+    free()
+    anyl_launches = timed_phase("3 any-length int8, streamed decode", phase_anyl_int8,
                                 torch, kernels)
     check_no_yardstick(anyl_launches, "phase 3")
     free()
@@ -1353,6 +1927,9 @@ def main() -> int:
     check_no_yardstick(kernels.LAUNCHES, "phases 4 and 7")
     log(f"launches of phases 4 and 7: {kernels.LAUNCHES}; the mma.sync yardsticks "
         "launched 0 times after phase 1")
+    timed_phase("10 small variants, CLI int8, fused to_qkv (new)", phase_small_variants,
+                torch, kernels)
+    check_no_yardstick(kernels.LAUNCHES, "phase 10")
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -1373,7 +1950,9 @@ def main() -> int:
              "source": "videopainter_tpu_torch/csrc/flash_fwd_wgmma.cu",
              "replaces": "videopainter_tpu/ops/flash_attention.py:68",
              "launches": launches["flash_fwd"],
-             "launches_training": train_launches["flash_fwd"], **stats},
+             "launches_training": train_launches["flash_fwd"],
+             "launches_cli": cli_launches["flash_fwd"],
+             "launches_variants": variant_launches["flash_fwd"], **stats},
             {"name": "flash_dq", "route": "cuda", "source": csrc + fa._DQ_SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention.py:164",
              "launches": train_launches["flash_dq"], **b2},

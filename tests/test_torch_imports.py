@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(res["modules"]) >= 37, res["modules"]
+    assert len(res["modules"]) >= 51, res["modules"]
     assert res["bad"] == [], f"the port imported {res['bad']}"
     assert res["launches"] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "training", "training.train_branch", "training.optim", "training.masks",
                  "training.data", "training.checkpoint", "training.trainer",
                  "training.validation", "training.cli", "models.text_encoder", "models.vae",
-                 "flagship"):
+                 "flagship", "infer.inpaint", "infer.edit", "infer.first_frame",
+                 "pipelines.variants", "pipelines.generation", "utils.profiling",
+                 "convert.safetensors_io"):
         assert f"videopainter_tpu_torch.{name}" in res["modules"]
 
 

@@ -33,7 +33,8 @@ from videopainter_tpu.quantize import quantize_transformer_int8 as jquantize
 from videopainter_tpu.schedulers import CogVideoXDDIMScheduler as JDDIM
 from videopainter_tpu.training import optim as joptim
 from videopainter_tpu.training import train_branch as jtrain
-from videopainter_tpu_torch.convert import (branch_state_dict, load_quantized, lora_params,
+from videopainter_tpu_torch.convert import (branch_state_dict, load_quantized,
+                                            load_safetensors_dir, lora_params,
                                             transformer_state_dict, vae_state_dict)
 from videopainter_tpu_torch.convert.from_jax import to_jax_layout
 from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBranch,
@@ -672,7 +673,7 @@ def test_export_round_trip_under_reference_names(tmp_path, stack):
     assert cfg == json.loads((tmp_path / "jax" / "config.json").read_text())
     fresh = CogVideoXBranch(tcfg.load_config(str(tmp_path / "port" / "config.json"),
                                              tcfg.BranchConfig))
-    fresh.load_state_dict(tckpt.load_safetensors_dir(str(tmp_path / "port")))
+    fresh.load_state_dict(load_safetensors_dir(str(tmp_path / "port")))
     for (n, a), (_, b) in zip(fresh.state_dict().items(), branch.state_dict().items()):
         assert torch.equal(a, b), n
 

@@ -12,6 +12,8 @@ both packages compute with the same weights.
  - Conv2d:   kernel HWIO                    -> [O, I, kh, kw]
  - LayerNorm/GroupNorm: scale -> weight, bias -> bias
  - stacked blocks [L, ...]                  -> transformer_blocks.{i}.*
+ - fused attention slot: to_qkv            -> attn1.to_qkv (a model fused by
+                                              ops.attention.fuse_qkv_projections)
  - int8 linear: kernel_q [in, out] int8     -> weight_q [out, in]; kscale, ascale kept
    (`load_quantized`: a quantized tree has other modules than a plain one)
  - LoRA tree (lora_A, lora_B [L, ...])      -> tensors (`lora_params`)
@@ -64,8 +66,9 @@ def _block(sd: StateDict, prefix: str, bp: dict) -> None:
         _linear(sd, f"{prefix}.{n}.linear", bp[n]["linear"])
         _norm(sd, f"{prefix}.{n}.norm", bp[n].get("norm"))
     a = bp["attn1"]
-    for n in ("to_q", "to_k", "to_v"):
-        _linear(sd, f"{prefix}.attn1.{n}", a[n])
+    for n in ("to_qkv", "to_q", "to_k", "to_v"):   # fused, or the three
+        if n in a:
+            _linear(sd, f"{prefix}.attn1.{n}", a[n])
     _linear(sd, f"{prefix}.attn1.to_out.0", a["to_out"])
     for n in ("norm_q", "norm_k"):
         _norm(sd, f"{prefix}.attn1.{n}", a.get(n))
@@ -94,8 +97,8 @@ def transformer_state_dict(params: dict, *, patch_size: int = 2) -> StateDict:
         sd["patch_embed.pos_embedding"] = _t(pe["pos_embedding"])
     _linear(sd, "time_embedding.linear_1", params["time_embedding"]["linear_1"])
     _linear(sd, "time_embedding.linear_2", params["time_embedding"]["linear_2"])
-    to_q = params["blocks"]["attn1"]["to_q"]
-    n = np.asarray(to_q["kernel_q"] if "kernel_q" in to_q else to_q["kernel"]).shape[0]
+    to_out = params["blocks"]["attn1"]["to_out"]
+    n = np.asarray(to_out["kernel_q"] if "kernel_q" in to_out else to_out["kernel"]).shape[0]
     for i in range(n):
         _block(sd, f"transformer_blocks.{i}", _layer(params["blocks"], i))
     _norm(sd, "norm_final", params.get("norm_final"))

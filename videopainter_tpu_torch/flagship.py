@@ -51,7 +51,7 @@ import torch
 from . import card_line
 from .config import BranchConfig, SchedulerConfig, TransformerConfig, VAEConfig
 from .models import AutoencoderKLCogVideoX, CogVideoXBranch, CogVideoXTransformer3D
-from .models.lora import init_lora_params, merge_lora
+from .models.lora import LORA_ALPHA, LORA_RANK, init_lora_params, merge_lora
 from .models.text_encoder import T5TextEncoder
 from .pipelines import CogVideoXI2VDualInpaintAnyLPipeline, CogVideoXI2VDualInpaintPipeline
 from .quantize import quantize_transformer_int8
@@ -79,7 +79,6 @@ def build_pipeline(generator: torch.Generator, *, device="cuda", dtype=torch.bfl
         CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference()), device=device)
 
 
-LORA_RANK, LORA_ALPHA = 256, 128.0   # the VideoPainterID adapter's
 
 
 def build_anyl_int8_pipeline(generator: torch.Generator, *, device="cuda",
@@ -94,17 +93,25 @@ def build_anyl_int8_pipeline(generator: torch.Generator, *, device="cuda",
     pipe = build_pipeline(generator, device=device, dtype=dtype, tcfg=tcfg,
                           branch_layers=branch_layers, vcfg=vcfg,
                           pipeline_cls=CogVideoXI2VDualInpaintAnyLPipeline)
-    lora = init_lora_params(generator, pipe.transformer, rank=lora_rank, dtype=dtype)
-    for ab in lora.values():   # a trained adapter's B is not zero
-        b = ab["lora_B"]
-        ab["lora_B"] = ((torch.rand(b.shape, generator=generator, device=b.device) * 2 - 1)
-                        * b.shape[1] ** -0.5).to(dtype)
+    lora = random_lora(generator, pipe.transformer, rank=lora_rank, dtype=dtype)
     merge_lora(pipe.transformer, lora, alpha=LORA_ALPHA * lora_rank / LORA_RANK, rank=lora_rank)
     del lora
     if int8:
         quantize_transformer_int8(pipe.transformer, free_source=True)
         quantize_transformer_int8(pipe.branch, free_source=True)
     return pipe
+
+
+def random_lora(generator: torch.Generator, transformer, *, rank: int = LORA_RANK,
+                dtype=torch.bfloat16):
+    """A seeded adapter of `rank` for `transformer`'s attention, as a trained
+    one looks: A as `init_lora_params` draws it, B not zero."""
+    lora = init_lora_params(generator, transformer, rank=rank, dtype=dtype)
+    for ab in lora.values():
+        b = ab["lora_B"]
+        ab["lora_B"] = ((torch.rand(b.shape, generator=generator, device=b.device) * 2 - 1)
+                        * b.shape[1] ** -0.5).to(dtype)
+    return lora
 
 
 def random_clip(generator: torch.Generator, *, frames=49, height=480, width=720,

@@ -16,8 +16,11 @@ resampling, per-layer previous-window states in three forms (full
 into a zero buffer whose extra slot S_joint takes the pad indices; the int8
 dict {"values", "scales"} dequantized per layer), captures of the per-layer
 states (`return_hidden_states`, `capture_indices`, `capture_quant`) and the
-activation-amax calibration pass of the int8 linears. The self-guidance swap
-belongs to the variants slice.
+activation-amax calibration pass of the int8 linears. So does the
+self-guidance swap of the training-free baseline: after each block, the
+video tokens outside the mask are replaced by that layer's states from a
+guidance pass (`self_guidance_hidden_states`, [L, B, S_vid, D]), the mask
+(`self_guidance_masks`) pooled by the patch embed as the branch's is.
 
 Training: `remat=True` runs every block under a non-reentrant
 `torch.utils.checkpoint`, so only block inputs stay resident and each block
@@ -209,6 +212,13 @@ class _CogVideoXBase(nn.Module):
         """Seeded random weights (see ops.basic.init_random_) and the sincos
         table, for a model made on the meta device and moved with to_empty."""
         init_random_(self, generator)
+        return self.init_pos_embedding_()
+
+    @torch.no_grad()
+    def init_pos_embedding_(self):
+        """Fill the sincos table `patch_embed.pos_embedding`, if the model has
+        one, for a model made on the meta device (a checkpoint holds the table
+        only when it is learned)."""
         if hasattr(self.patch_embed, "pos_embedding"):
             pe = self.patch_embed.pos_embedding
             pe.copy_(torch.from_numpy(positional_embeddings(self.cfg)).to(pe.dtype))
@@ -250,6 +260,8 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         branch_block_samples: Optional[torch.Tensor] = None,  # [n_branch, B, S_vid, D]
         branch_block_masks: Optional[torch.Tensor] = None,    # [B, T_lat, H, W] float
         add_first: bool = False,
+        self_guidance_hidden_states: Optional[torch.Tensor] = None,  # [L, B, S_vid, D]
+        self_guidance_masks: Optional[torch.Tensor] = None,          # [B, T_lat, H, W] float
         prev_hidden_states: Optional[Any] = None,   # [L, B, S_joint, D], or compressed
                                                     # [L, B, M, D], or {"values": int8,
                                                     # "scales": fp32}
@@ -275,7 +287,7 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                 "ID-resample path: the base processor's prev-clip blend reads the full "
                 "sequence of prev keys and values")
         if calibrate and (return_hidden_states or remat or prev_hidden_states is not None
-                          or id_pool_resample):
+                          or id_pool_resample or self_guidance_hidden_states is not None):
             # the variant paths add to_k / to_v calls and a checkpoint reruns the
             # block, both of which would scramble the site order of the
             # recorded amaxes
@@ -286,8 +298,9 @@ class CogVideoXTransformer3D(_CogVideoXBase):
             # states would be silently ignored
             raise ValueError("prev_hidden_states requires prev_clip_weight")
         b, num_frames, height, width, _ = hidden_states.shape
+        masks = self_guidance_masks if self_guidance_masks is not None else branch_block_masks
         emb, h, enc_h, patch_mask = self._embed(hidden_states, encoder_hidden_states,
-                                                timestep, masks=branch_block_masks)
+                                                timestep, masks=masks)
         text_len, s_vid = enc_h.shape[1], h.shape[1]
         s_joint = text_len + s_vid
 
@@ -343,10 +356,13 @@ class CogVideoXTransformer3D(_CogVideoXBase):
             return self.transformer_blocks[i](h, enc_h, emb, rope, **block_kw(i))
 
         def inject(i: int, h):
-            """Block i's branch injection. It stays outside the block's
-            checkpoint: it keeps nothing but the gate mask for the backward,
-            and inside it would make a block whose input needs no gradient
+            """Block i's self-guidance swap (the background from the guidance
+            pass), then its branch injection. Both stay outside the block's
+            checkpoint: they keep nothing but the gate mask for the backward,
+            and inside they would make a block whose input needs no gradient
             (block 0 under branch training) recompute for that mask alone."""
+            if self_guidance_hidden_states is not None:
+                h = torch.where(gate_mask, h, self_guidance_hidden_states[i].to(h.dtype))
             if branch_block_samples is None:
                 return h
             injected = h + branch_block_samples[bidx[i]].to(h.dtype) * float(bvalid[i])

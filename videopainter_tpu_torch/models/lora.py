@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 LORA_TARGETS = ("to_q", "to_k", "to_v", "to_out")
+LORA_RANK, LORA_ALPHA = 256, 128.0   # the VideoPainterID adapter's
 LoraParams = Dict[str, Dict[str, torch.Tensor]]
 
 
@@ -104,7 +105,8 @@ def convert_peft_lora_state_dict(sd: Dict[str, object], num_layers: int, rank: i
     for k, v in sd.items():
         m = _PEFT_RE.match(k)
         if m:
-            found[(m.group(2), m.group(3), int(m.group(1)))] = torch.as_tensor(np.asarray(v))
+            found[(m.group(2), m.group(3), int(m.group(1)))] = (
+                v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
     out: LoraParams = {}
     for tgt in LORA_TARGETS:
         a_list, b_list = [], []

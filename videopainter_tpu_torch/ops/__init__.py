@@ -1,4 +1,4 @@
-from .attention import Attention, joint_attention, sdpa
+from .attention import Attention, fuse_qkv, fuse_qkv_projections, joint_attention, sdpa
 from .basic import (GroupNorm, LayerNorm, Linear, gelu_tanh, group_norm,
                     init_random_, layer_norm, linear, silu)
 from .embeddings import TimestepEmbedding, timestep_embedding
@@ -10,7 +10,7 @@ from .rope import (apply_rotary_emb, get_3d_rotary_pos_embed,
 from .sincos import get_3d_sincos_pos_embed
 
 __all__ = [
-    "Attention", "joint_attention", "sdpa",
+    "Attention", "fuse_qkv", "fuse_qkv_projections", "joint_attention", "sdpa",
     "GroupNorm", "LayerNorm", "Linear", "gelu_tanh", "group_norm", "init_random_",
     "layer_norm", "linear", "silu",
     "TimestepEmbedding", "timestep_embedding", "FeedForward",

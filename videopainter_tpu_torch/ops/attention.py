@@ -22,6 +22,11 @@ hand-written bf16 flash kernel (`ops/flash_attention.py`), `"int8"` and
 Heads are split by a view ([B, S, H, d]) and handed to the flash kernels as
 [B, H, S, d] strided views: no transposed copies. The sequence is never
 padded, so the 2 S-key call needs no paged mask here.
+
+`fuse_qkv_projections` folds a model's to_q / to_k / to_v into one
+Linear(D, 3 D) named `to_qkv` (diffusers' fuse_qkv_projections, the
+FusedCogVideoXAttnProcessor2_0): one product where there were three, whose
+output is split into the same q, k and v.
 """
 
 from __future__ import annotations
@@ -90,6 +95,20 @@ class Attention(nn.Module):
         self.norm_q = LayerNorm(head_dim, eps=qk_norm_eps, **kw) if qk_norm else None
         self.norm_k = LayerNorm(head_dim, eps=qk_norm_eps, **kw) if qk_norm else None
 
+    @property
+    def fused(self) -> bool:
+        return "to_qkv" in self._modules
+
+    def project(self, x: torch.Tensor, with_q: bool = True):
+        """(q, k, v) projections of x [B, S, D], by the fused or the separate
+        linears. Without q, the separate linears skip to_q; the fused one
+        projects q all the same (and the caller drops it), as the reference's
+        fused processor does."""
+        if self.fused:
+            return tuple(self.to_qkv(x).chunk(3, dim=-1))
+        k_flat, v_flat = self.to_k(x), self.to_v(x)
+        return (self.to_q(x) if with_q else None), k_flat, v_flat
+
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor], *,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -129,8 +148,8 @@ def joint_attention(
     norm_k = (lambda t: t) if attn.norm_k is None else attn.norm_k
     attend = _pick_flash(use_flash) if use_flash else sdpa
 
-    k_flat, v_flat = attn.to_k(x), attn.to_v(x)
-    q = split(attn.to_q(x))
+    q_flat, k_flat, v_flat = attn.project(x)
+    q = split(q_flat)
     if attn.norm_q is not None:
         q = attn.norm_q(q)
     q = _rope_video_slice(q, rope, text_len).transpose(1, 2)
@@ -144,8 +163,7 @@ def joint_attention(
         # the mask multiplies the raw K / V projections
         if has_prev:
             m = prev_resample_mask[..., None]
-            km_flat = attn.to_k(prev_hidden_states)
-            vm_flat = attn.to_v(prev_hidden_states)
+            _, km_flat, vm_flat = attn.project(prev_hidden_states, with_q=False)
             km_flat = km_flat * m.to(km_flat.dtype) * prev_clip_weight
             vm_flat = vm_flat * m.to(vm_flat.dtype) * prev_clip_weight
         else:
@@ -159,9 +177,9 @@ def joint_attention(
     elif has_prev:
         # the blend is linear in the attention outputs, so two calls replace
         # the reference's two SDPAs
-        pk = _rope_video_slice(norm_k(split(attn.to_k(prev_hidden_states))), rope,
-                               text_len).transpose(1, 2)
-        pv = split(attn.to_v(prev_hidden_states)).transpose(1, 2)
+        _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
+        pk = _rope_video_slice(norm_k(split(pk_flat)), rope, text_len).transpose(1, 2)
+        pv = split(pv_flat).transpose(1, 2)
         w = prev_clip_weight
         out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w
     else:
@@ -171,3 +189,33 @@ def joint_attention(
     if encoder_hidden_states is None:
         return out, None
     return out[:, text_len:], out[:, :text_len]
+
+
+@torch.no_grad()
+def fuse_qkv(attn: Attention) -> Attention:
+    """Replace `attn`'s to_q / to_k / to_v by one `to_qkv` whose weight
+    stacks theirs ([3 D, D], q then k then v) and whose bias concatenates
+    theirs; in place, returns `attn`. Plain linears only: quantize after
+    fusing, and merge an adapter before."""
+    lins = [attn.to_q, attn.to_k, attn.to_v]
+    if not all(type(lin) is Linear and getattr(lin, "lora_A", None) is None for lin in lins):
+        raise ValueError("fuse_qkv takes plain linears: fuse before quantizing or "
+                         "attaching an adapter")
+    w = lins[0].weight
+    fused = Linear(w.shape[1], 3 * w.shape[0], bias=lins[0].bias is not None,
+                   device=w.device, dtype=w.dtype)
+    fused.weight.copy_(torch.cat([lin.weight for lin in lins], dim=0))
+    if fused.bias is not None:
+        fused.bias.copy_(torch.cat([lin.bias for lin in lins], dim=0))
+    for name in ("to_q", "to_k", "to_v"):
+        delattr(attn, name)
+    attn.to_qkv = fused
+    return attn
+
+
+def fuse_qkv_projections(model: nn.Module) -> nn.Module:
+    """`fuse_qkv` on the attention of every block of a DiT or branch; in
+    place, returns `model`."""
+    for block in model.transformer_blocks:
+        fuse_qkv(block.attn1)
+    return model

@@ -1,13 +1,24 @@
-"""Shared pipeline machinery for the dual-stream mode: RoPE tables, mask
-resize, dynamic CFG, and the denoise loop.
+"""Shared pipeline machinery: RoPE tables, mask resize, dynamic CFG, the
+step-skip schedule, and the denoise loop.
 
 Counterpart of `videopainter_tpu/pipelines/common.py`. The JAX package
 compiles the denoise loop into one `lax.scan`; here it is a plain Python loop
 over steps with the same per-step arithmetic: CFG-batched (or sequential)
-branch + backbone, dynamic CFG, the DPM step with its x0 carry, and the
-replace_gt re-noise blend. Scheduler coefficients are precomputed on the
-host. The `init_noise` / `dpm_noises` hooks inject identical noise for
-parity tests.
+branch + backbone, dynamic CFG, the DPM step with its x0 carry (SDE noise
+drawn each step unless `dpm_sde` is off), and the replace_gt re-noise blend.
+Scheduler coefficients are precomputed on the host. The `init_noise` /
+`dpm_noises` hooks inject identical noise for parity tests.
+
+The model pass has four modes (`DenoiseConfig.mode`):
+ - "dual": branch features injected into the backbone (the flagship);
+ - "sft": the conditioning channels [masked-video latents ‖ mask]
+   concatenated straight into a widened backbone, no branch (the SFT
+   baseline; its backbone is T2V, so no image-latent concat);
+ - "plain": the bare backbone (the latent-blend baseline and the stock
+   generation pipelines);
+ - "selfguidance": a guidance pass on the noised masked-video latents whose
+   per-layer video states are swapped into the main pass outside the mask;
+   its replace_gt blend re-noises the masked-video latents.
 
 For the any-length pipeline the loop takes the previous window's state
 (`prev_state`: per-layer hidden states, resample mask, weight, and the token
@@ -120,9 +131,38 @@ class DenoiseInputs(NamedTuple):
                                            # keeps only these joint-sequence positions
 
 
+def uniform_skip_steps(num_steps: int, start: int, end: int,
+                       stride: int = 2) -> Tuple[int, ...]:
+    """Step-skip schedule: inside [start, end) the model runs only every
+    `stride`-th step and the other steps reuse the cached pre-CFG prediction;
+    steps outside always run. Returns the skipped indices."""
+    if not 0 < start <= end <= num_steps:
+        raise ValueError(f"bad skip window [{start}, {end}) for {num_steps} steps")
+    if stride < 2:
+        raise ValueError("stride must be >= 2 (stride 1 would skip every step)")
+    return tuple(i for i in range(start, end) if (i - start) % stride)
+
+
+def parse_skip_steps(spec: str, num_steps: int) -> Tuple[int, ...]:
+    """The CLI spelling of a skip schedule: "start:end[:stride]" (a uniform
+    window) or a comma list of step indices (deduplicated, range-checked)."""
+    if ":" in spec:
+        parts = [int(x) for x in spec.split(":")]
+        return uniform_skip_steps(num_steps, parts[0], parts[1],
+                                  parts[2] if len(parts) > 2 else 2)
+    steps = sorted({int(x) for x in spec.split(",") if x.strip()})
+    for si in steps:
+        if not 0 <= si < num_steps:
+            raise ValueError(f"skip step {si} out of range [0, {num_steps})")
+    return tuple(steps)
+
+
+MODES = ("dual", "sft", "plain", "selfguidance")
+
+
 @dataclass(frozen=True)
 class DenoiseConfig:
-    """Options of the denoise loop (dual mode)."""
+    """Options of the denoise loop."""
 
     num_inference_steps: int
     do_cfg: bool
@@ -141,6 +181,8 @@ class DenoiseConfig:
     sequential_cfg: bool = False     # uncond/cond as two B-sized passes
     skip_steps: Optional[Tuple[int, ...]] = None  # reuse the previous pre-CFG
                                      # prediction at these steps (step 0 always runs)
+    dpm_sde: bool = True             # draw SDE noise each DPM step (unless injected)
+    mode: str = "dual"               # "dual" | "sft" | "plain" | "selfguidance"
 
 
 def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
@@ -156,6 +198,8 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
     dcfg.capture_hidden_states the final step also returns its per-layer
     states. progress_fn(i) is called after step i completes on the host side.
     """
+    if dcfg.mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {dcfg.mode!r}")
     S = len(timesteps)
     # the scheduler's stride derives from the un-sliced step count; dynamic
     # CFG uses the post-slice count (both as the reference)
@@ -194,7 +238,10 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         image_latents = rep(inputs.image_latents)
         masked_lat = rep(inputs.masked_video_latents)
         mask = rep(inputs.mask)
-        if tcfg.in_channels == 2 * latents.shape[-1]:
+        # I2V: the image latents join the backbone input; the SFT backbone is
+        # T2V (widened to noisy + masked + mask), so never there
+        i2v = tcfg.in_channels == 2 * latents.shape[-1]
+        if dcfg.mode != "sft" and i2v:
             latent_model_input = torch.cat([latent_video_input, image_latents], dim=-1)
         else:
             latent_model_input = latent_video_input
@@ -209,16 +256,37 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         if capture and inputs.capture_indices is not None:
             kw["capture_indices"] = rep(inputs.capture_indices)
             kw["capture_quant"] = dcfg.capture_quant
-        branch_cond = torch.cat([masked_lat, mask[..., None]], dim=-1)
-        branch_samples = branch(latent_video_input, embeds, branch_cond, timestep,
-                                rope=rope, conditioning_scale=dcfg.conditioning_scale,
-                                use_flash=dcfg.use_flash)
-        return transformer(latent_model_input, embeds, timestep, rope=rope,
-                           branch_block_samples=branch_samples,
-                           branch_block_masks=mask if dcfg.mask_add else None,
-                           add_first=dcfg.add_first,
-                           id_pool_resample=dcfg.id_pool_resample,
-                           return_hidden_states=capture, use_flash=dcfg.use_flash, **kw)
+        kw.update(return_hidden_states=capture, use_flash=dcfg.use_flash)
+        if dcfg.mode == "dual":
+            branch_cond = torch.cat([masked_lat, mask[..., None]], dim=-1)
+            branch_samples = branch(latent_video_input, embeds, branch_cond, timestep,
+                                    rope=rope, conditioning_scale=dcfg.conditioning_scale,
+                                    use_flash=dcfg.use_flash)
+            return transformer(latent_model_input, embeds, timestep, rope=rope,
+                               branch_block_samples=branch_samples,
+                               branch_block_masks=mask if dcfg.mask_add else None,
+                               add_first=dcfg.add_first,
+                               id_pool_resample=dcfg.id_pool_resample, **kw)
+        if dcfg.mode == "sft":
+            # the widened backbone takes [noisy ‖ masked-video ‖ mask]
+            model_in = torch.cat([latent_model_input, masked_lat, mask[..., None]], dim=-1)
+            return transformer(model_in, embeds, timestep, rope=rope, **kw)
+        if dcfg.mode == "selfguidance":
+            # guidance pass on the noised masked-video latents; its per-layer
+            # video states replace the main pass's outside the mask
+            abar_t = np.float32(scheduler.alphas_cumprod[int(coeffs.timesteps[i])])
+            noised = (float(np.sqrt(abar_t)) * masked_lat.float()
+                      + float(np.sqrt(np.float32(1) - abar_t)) * rep(inputs.noise).float()
+                      ).to(masked_lat.dtype)
+            if i2v:
+                noised = torch.cat([noised, image_latents], dim=-1)
+            g = transformer(noised, embeds, timestep, rope=rope, return_hidden_states=True,
+                            use_flash=dcfg.use_flash)
+            sg = g.hidden_states_list[:, :, embeds.shape[1]:]
+            del g
+            return transformer(latent_model_input, embeds, timestep, rope=rope,
+                               self_guidance_hidden_states=sg, self_guidance_masks=mask, **kw)
+        return transformer(latent_model_input, embeds, timestep, rope=rope, **kw)   # plain
 
     def tree_map(fn, *trees):
         """fn over tensors or over the int8-capture dicts of tensors."""
@@ -271,16 +339,20 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             # DDIM (the trainer's scheduler, in its validation runs): no SDE noise
             latents, x0 = scheduler.step(coeffs, i, noise_pred, latents)
         else:
+            sde_noise = None
             if inputs.dpm_noises is not None:
                 sde_noise = inputs.dpm_noises[i]
-            else:
+            elif dcfg.dpm_sde:
                 sde_noise = torch.randn(latents.shape, generator=generator,
                                         dtype=torch.float32, device=latents.device)
             latents, x0 = scheduler.step(coeffs, i, noise_pred, old_x0, latents,
                                          noise=sde_noise)
         if dcfg.replace_gt:
             dtype = latents.dtype
-            src = inputs.video_latents.float()
+            # self-guidance blends against the masked-video latents, every
+            # other mode against the clean video latents
+            src = (inputs.masked_video_latents if dcfg.mode == "selfguidance"
+                   else inputs.video_latents).float()
             init_latents = (src * float(sqrt_ab[i]) + inputs.noise.float() * float(sqrt_1mab[i])) \
                 * float(renoise[i]) + src * (1.0 - float(renoise[i]))
             m = inputs.mask[..., None].float()

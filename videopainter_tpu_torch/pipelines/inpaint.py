@@ -33,17 +33,23 @@ from .common import (DenoiseConfig, DenoiseInputs, get_strength_timesteps,
 
 
 class CogVideoXI2VDualInpaintPipeline:
-    """Holds the three models, the scheduler and optionally a text encoder;
-    the models' weights and device are the pipeline's (`to` moves them). The
-    text encoder stays where it was built."""
+    """Holds the models (the branch is None in the branchless variants), the
+    scheduler and optionally a text encoder; the models are moved to the
+    pipeline's device. The text encoder stays where it was built.
 
-    def __init__(self, transformer: CogVideoXTransformer3D, branch: CogVideoXBranch,
+    Subclasses select the denoise mode (`pipelines/variants.py`,
+    `pipelines/generation.py`): "dual" is the flagship branch-injection
+    path, "sft" / "plain" / "selfguidance" the reference's baselines."""
+
+    _mode = "dual"
+
+    def __init__(self, transformer: CogVideoXTransformer3D, branch: Optional[CogVideoXBranch],
                  vae: AutoencoderKLCogVideoX, scheduler: CogVideoXDPMScheduler,
                  text_encoder: Optional[T5TextEncoder] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.transformer = transformer.to(self.device).eval()
-        self.branch = branch.to(self.device).eval()
+        self.branch = None if branch is None else branch.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.scheduler = scheduler
         self.text_encoder = text_encoder
@@ -193,6 +199,11 @@ class CogVideoXI2VDualInpaintPipeline:
             image=image, video=video, masks=masks, generator=generator, strength=strength,
             timesteps=timesteps, mask_background=mask_background,
             vae_sample_mode=vae_sample_mode, init_noise=init_noise, dtype=dtype)
+        if self._mode == "selfguidance":
+            # the loop starts from the noised masked-video latents, not from noise
+            inputs = inputs._replace(latents=self.scheduler.add_noise(
+                inputs.masked_video_latents, inputs.noise,
+                np.full((video.shape[0],), int(timesteps[0]))))
         inputs = inputs._replace(prompt_embeds=embeds.to(dtype))
         if dpm_noises is not None:
             inputs = inputs._replace(dpm_noises=dpm_noises.to(dev, dtype))
@@ -207,7 +218,7 @@ class CogVideoXI2VDualInpaintPipeline:
             mask_add=mask_add, mask_background=mask_background, add_first=add_first,
             wo_text=wo_text, id_pool_resample=id_pool_resample,
             use_flash=use_flash, sequential_cfg=sequential_cfg,
-            skip_steps=tuple(skip_steps) if skip_steps else None)
+            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode)
         n_steps = len(timesteps)
         denoise = make_denoise_fn(
             self.transformer, self.branch, self.scheduler, dcfg, timesteps,

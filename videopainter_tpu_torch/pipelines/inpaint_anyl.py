@@ -131,7 +131,7 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
             mask_add=mask_add, mask_background=mask_background, add_first=add_first,
             wo_text=wo_text, id_pool_resample=id_pool_resample,
             use_flash=use_flash, sequential_cfg=sequential_cfg,
-            skip_steps=tuple(skip_steps) if skip_steps else None)
+            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode)
 
         def window_start(w: int) -> int:
             if w == 0:
@@ -144,9 +144,11 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         # weight 0 the blend is the identity, and the captured stack is large.
         wants_prev = id_pool_resample or (prev_clip_weight or 0.0) > 0.0
         # Compressed capture, on the ID-resample path only (the prev-clip blend
-        # reads the full prev keys and values)
+        # reads the full prev keys and values), where the model pools the mask:
+        # the dual mode with mask_add, and self-guidance
         can_compress = (bool(compress_capture) and id_pool_resample
-                        and self.transformer.cfg.id_pool_resample_learnable and mask_add)
+                        and self.transformer.cfg.id_pool_resample_learnable
+                        and (mask_add if self._mode == "dual" else self._mode == "selfguidance"))
 
         # streaming decode: the frames before the next window's start are final
         # after a window, and are decoded then

@@ -9,9 +9,10 @@ keep their precision. Approximate by design; the reference has no quantized
 path.
 
 Sites carry the JAX package's names (`to_q`, `to_k`, `to_v`, `to_out`,
-`proj_in`, `proj_out`), which are also the keys of a saved scales file
-(`<model>/<site>`, one value per layer), so `calib_ascales.npz` at the root
-of the repository loads here unchanged.
+`proj_in`, `proj_out`, and `to_qkv` on a model whose projections were fused
+by `ops.attention.fuse_qkv_projections`), which are also the keys of a saved
+scales file (`<model>/<site>`, one value per layer), so `calib_ascales.npz`
+at the root of the repository loads here unchanged.
 
     quantize_transformer_int8(pipe.transformer, free_source=True)
     quantize_transformer_int8(pipe.branch, free_source=True)
@@ -29,15 +30,28 @@ from torch import nn
 
 from .ops.basic import Int8Linear, quantize_linear_int8
 
-# site name -> path of the linear inside a CogVideoXBlock, in the forward's call order
+# site name -> path of the linear inside a CogVideoXBlock, in the forward's call
+# order; a block has either the fused to_qkv or to_q / to_k / to_v
 _SITES: Tuple[Tuple[str, str], ...] = (
+    ("to_qkv", "attn1.to_qkv"),
     ("to_q", "attn1.to_q"), ("to_k", "attn1.to_k"), ("to_v", "attn1.to_v"),
     ("to_out", "attn1.to_out.0"), ("proj_in", "ff.net.0.proj"), ("proj_out", "ff.net.2"))
+_LAYOUTS = (["to_q", "to_k", "to_v", "to_out", "proj_in", "proj_out"],
+            ["to_qkv", "to_out", "proj_in", "proj_out"])
 
 
 def _set(block: nn.Module, path: str, new: nn.Module) -> None:
     parent, _, name = path.rpartition(".")
     setattr(block.get_submodule(parent), name, new)
+
+
+def _sites(block: nn.Module):
+    """(name, path, linear) of each site the block has."""
+    for name, path in _SITES:
+        parent, _, attr = path.rpartition(".")
+        lin = getattr(block.get_submodule(parent), attr, None)
+        if lin is not None:
+            yield name, path, lin
 
 
 def quantize_transformer_int8(model: nn.Module, *, free_source: bool = False) -> nn.Module:
@@ -51,8 +65,7 @@ def quantize_transformer_int8(model: nn.Module, *, free_source: bool = False) ->
         model = copy.deepcopy(model)
     with torch.no_grad():
         for block in model.transformer_blocks:
-            for _, path in _SITES:
-                lin = block.get_submodule(path)
+            for _, path, lin in list(_sites(block)):
                 if isinstance(lin, nn.Linear):
                     # the model being rewritten is disposable either way
                     _set(block, path, quantize_linear_int8(lin, free_source=True))
@@ -62,10 +75,11 @@ def quantize_transformer_int8(model: nn.Module, *, free_source: bool = False) ->
 def ascale_site_order(model: nn.Module) -> List[str]:
     """Names of the quantized linears of a block in the forward's call order,
     the order a calibration pass records activation amaxes in. Raises unless
-    all six sites are quantized."""
-    block = model.transformer_blocks[0]
-    sites = [name for name, path in _SITES if isinstance(block.get_submodule(path), Int8Linear)]
-    if sites != [name for name, _ in _SITES]:
+    every site of one of the two layouts (separate or fused q / k / v) is
+    quantized."""
+    sites = [name for name, _, lin in _sites(model.transformer_blocks[0])
+             if isinstance(lin, Int8Linear)]
+    if sites not in _LAYOUTS:
         raise ValueError(f"unexpected quantized-site layout: {sites}")
     return sites
 
@@ -79,8 +93,7 @@ def attach_static_ascale(model: nn.Module, ascale) -> nn.Module:
     arrays from `calibrate_ascales`; sites missing from the dict stay dynamic.
     """
     for i, block in enumerate(model.transformer_blocks):
-        for name, path in _SITES:
-            lin = block.get_submodule(path)
+        for name, _, lin in _sites(block):
             if not isinstance(lin, Int8Linear):
                 continue
             if isinstance(ascale, dict):

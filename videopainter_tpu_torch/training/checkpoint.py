@@ -9,20 +9,21 @@ pytorch_lora_weights.safetensors.
 The train state (trainable tensors, optimizer state, step) is one
 `torch.save` file per checkpoint directory. The exports write the same
 diffusers / peft names as the JAX package: the port's modules already carry
-those names, so an export is a state-dict dump. `safetensors` is imported
-only inside the functions that read or write it.
+those names, so an export is a state-dict dump through
+`convert.save_safetensors_dir`, which also reads them back
+(`convert.load_safetensors_dir`).
 """
 
 from __future__ import annotations
 
-import json
 import os
 import re
 import shutil
-from typing import Dict, Optional
+from typing import Optional
 
-import numpy as np
 import torch
+
+from ..convert.safetensors_io import save_safetensors_dir
 
 STATE_FILE = "train_state.pt"
 
@@ -95,61 +96,36 @@ def _copy_into(target, source):
     return source
 
 
-# -- HF-format interop (safetensors) -------------------------------------------------
+# -- HF-format interop (safetensors; the loader lives in convert/) --------------------
 
-def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
-    """All *.safetensors of an HF model dir as one state dict."""
-    from safetensors import safe_open
-
-    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no .safetensors under {path}")
-    state = {}
-    for fname in files:
-        with safe_open(os.path.join(path, fname), framework="pt") as f:
-            for k in f.keys():
-                state[k] = f.get_tensor(k)
-    return state
+def _export(model_or_sd, config_dict: dict, out_dir: str, class_name: str, *,
+            dtype: torch.dtype = torch.float32, max_shard_bytes: Optional[int] = None) -> int:
+    """config.json + diffusion_pytorch_model.safetensors (sharded past
+    `max_shard_bytes`) in `dtype`; returns the bytes of the weight files."""
+    sd = model_or_sd.state_dict() if hasattr(model_or_sd, "state_dict") else model_or_sd
+    return save_safetensors_dir({k: v.to(dtype) for k, v in sd.items()}, out_dir,
+                                max_shard_bytes=max_shard_bytes,
+                                config=dict(config_dict, _class_name=class_name))
 
 
-def _export(sd: Dict[str, torch.Tensor], config_dict: dict, out_dir: str,
-            class_name: str) -> None:
-    from safetensors.numpy import save_file
-
-    os.makedirs(out_dir, exist_ok=True)
-    save_file({k: np.ascontiguousarray(v.detach().float().cpu().numpy()) for k, v in sd.items()},
-              os.path.join(out_dir, "diffusion_pytorch_model.safetensors"))
-    cfg = dict(config_dict)
-    cfg["_class_name"] = class_name
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=2)
+def export_branch_pretrained(branch, config_dict: dict, out_dir: str, **kw) -> int:
+    """HF save_pretrained-style export of the branch (module or state dict),
+    in float32 unless `dtype=` says otherwise."""
+    return _export(branch, config_dict, out_dir, "CogvideoXBranchModel", **kw)
 
 
-def _state_dict(model_or_sd) -> Dict[str, torch.Tensor]:
-    return model_or_sd.state_dict() if hasattr(model_or_sd, "state_dict") else dict(model_or_sd)
+def export_transformer_pretrained(transformer, config_dict: dict, out_dir: str, **kw) -> int:
+    return _export(transformer, config_dict, out_dir, "CogVideoXTransformer3DModel", **kw)
 
 
-def export_branch_pretrained(branch, config_dict: dict, out_dir: str) -> None:
-    """HF save_pretrained-style export of the branch (module or state dict):
-    config.json + diffusion_pytorch_model.safetensors in float32."""
-    _export(_state_dict(branch), config_dict, out_dir, "CogvideoXBranchModel")
+def export_vae_pretrained(vae, config_dict: dict, out_dir: str, **kw) -> int:
+    return _export(vae, config_dict, out_dir, "AutoencoderKLCogVideoX", **kw)
 
 
-def export_transformer_pretrained(transformer, config_dict: dict, out_dir: str) -> None:
-    _export(_state_dict(transformer), config_dict, out_dir, "CogVideoXTransformer3DModel")
-
-
-def export_vae_pretrained(vae, config_dict: dict, out_dir: str) -> None:
-    _export(_state_dict(vae), config_dict, out_dir, "AutoencoderKLCogVideoX")
-
-
-def export_lora_weights(lora_params: dict, out_dir: str) -> None:
-    """diffusers-compatible pytorch_lora_weights.safetensors."""
-    from safetensors.numpy import save_file
-
+def export_lora_weights(lora_params: dict, out_dir: str) -> int:
+    """diffusers-compatible pytorch_lora_weights.safetensors (float32)."""
     from ..models.lora import export_peft_lora_state_dict
 
-    os.makedirs(out_dir, exist_ok=True)
     sd = export_peft_lora_state_dict(lora_params)
-    save_file({k: np.asarray(v, dtype=np.float32) for k, v in sd.items()},
-              os.path.join(out_dir, "pytorch_lora_weights.safetensors"))
+    return save_safetensors_dir({k: torch.from_numpy(v) for k, v in sd.items()}, out_dir,
+                                prefix="pytorch_lora_weights")

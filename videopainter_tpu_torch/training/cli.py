@@ -198,7 +198,7 @@ def get_args(argv=None):
 def _load(module, path, device, dtype=None):
     """An HF-format directory's weights into `module` (float32 on `device`,
     or `dtype`)."""
-    from .checkpoint import load_safetensors_dir
+    from ..convert import load_safetensors_dir
 
     module.load_state_dict(load_safetensors_dir(path))
     return module.to(device=device, dtype=dtype)
