@@ -75,7 +75,23 @@ Phases (each fails the run loudly, exit code != 0):
     baseline (81 frames, 2 windows x 2 steps), launches held to the code's;
 10. the small variant and generation pipelines on the card against exact
     attention, the CLI's int8 modes at a tiny width against the int8 kernel's
-    plain version, a fused to_qkv model against the unfused one.
+    plain version, a fused to_qkv model against the unfused one;
+11. the evaluation path (`videopainter_tpu_torch.evaluate`) at full width:
+    a DAVIS-layout corpus at 480x720 (bear: 81 frames with a moving hole,
+    boat: 49), LPIPS-squeeze and InceptionI3d at published size (the
+    goldens' state dicts), CLIP ViT-L/14 from seeded random weights; phase
+    8's pipeline rebuilt from its checkpoint, bound to use_flash=True, run by
+    `run_inpainting_eval` with the sweep's anyl prev-clip weight 0.3 in
+    windows of 49 at overlap 17 (so that bear makes two whole windows; the
+    sweep's default overlap is 8), 2 steps a window, B1's launches held to
+    the code's count (and again on the prev-clip pair path); a resume that
+    runs no pipeline; the card's metrics against the CPU path on the saved
+    composite frames (float64 metrics to 1e-9, the learned extractors to
+    1e-6 or 1e-5, limits that the same comparison with TF32 left on must
+    fail);
+    the edit evaluation; then
+    the eval CLI and its sweep at a tiny width on the card (exact attention),
+    the CLI's rows held to a direct harness call's.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -87,9 +103,12 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -917,24 +936,51 @@ def write_checkpoint(root, transformer, branch, vae, lora=None, shard_bytes=None
     return n
 
 
-def moving_mask_clip(torch, generator, frames, height, width):
-    """uint8 frames [T, H, W, 3] and a rectangular hole (half of each side)
-    that moves right by 2 pixels a frame, as numpy."""
+def write_tiny_checkpoint(torch, root, gen, tcfg, vae, embeds, dtype, lora=False):
+    """The tiny checkpoint of the small CLI phases (10, 11) in `root`: a DiT
+    of `tcfg` and its branch in `dtype` from `gen` (the branch's projections
+    non-zero, so that it acts), `vae`, with `lora` a random ID adapter, and
+    `embeds` as embeds.npy."""
+    import os
     import numpy as np
-    video = torch.randint(0, 256, (frames, height, width, 3), generator=generator,
-                          device=generator.device, dtype=torch.uint8).cpu().numpy()
+    from videopainter_tpu_torch.config import BranchConfig
+    from videopainter_tpu_torch.flagship import random_lora
+    from videopainter_tpu_torch.models import CogVideoXBranch, CogVideoXTransformer3D
+
+    def build(ctor):
+        return ctor(device="meta", dtype=dtype).to_empty(device="cuda").init_random_(gen)
+
+    dit = build(lambda **kw: CogVideoXTransformer3D(tcfg, **kw))
+    br = build(lambda **kw: CogVideoXBranch(BranchConfig.from_transformer(tcfg), **kw))
+    for lin in br.branch_blocks:
+        torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
+    write_checkpoint(root, dit, br, vae, random_lora(gen, dit) if lora else None)
+    np.save(os.path.join(root, "embeds.npy"), embeds.cpu().numpy())
+
+
+def moving_masks(frames, height, width):
+    """uint8 masks [T, H, W]: a rectangular hole (half of each side) that
+    moves right by 2 pixels a frame."""
+    import numpy as np
     masks = np.zeros((frames, height, width), np.uint8)
     for t in range(frames):
         x0 = width // 8 + 2 * t
         masks[t, height // 4:3 * height // 4, x0:x0 + width // 2] = 1
-    return video, masks
+    return masks
+
+
+def moving_mask_clip(torch, generator, frames, height, width):
+    """uint8 frames [T, H, W, 3] and `moving_masks`, as numpy."""
+    video = torch.randint(0, 256, (frames, height, width, 3), generator=generator,
+                          device=generator.device, dtype=torch.uint8).cpu().numpy()
+    return video, moving_masks(frames, height, width)
 
 
 CLI_STEPS, CLI_FIRST_FRAME_STEPS = 2, 30   # the hook's default (infer/first_frame.py)
 CKPT_SHARD_BYTES = 5 * 10 ** 9
 
 
-def phase_cli(torch, kernels, pipe):
+def phase_cli(torch, kernels, pipe, root):
     """Phase 8: the inference CLI from disk at full width. Writes phase 2's
     models (42-layer bf16 DiT in shards, the VAE, the 2-layer branch) and a
     seeded rank-256 adapter as diffusers checkpoints, builds the pipeline
@@ -944,11 +990,12 @@ def phase_cli(torch, kernels, pipe):
     pre-inpainted at T=1, 2 windows x 2 steps, ID resampling: B1 over 35,552
     keys), holds it bit for bit to a direct call of the any-length pipeline,
     and where cv2 imports runs `main(argv)` on files the phase writes.
-    Consumes `pipe`'s models. Returns the launch counts of the CLI's compute."""
+    Consumes `pipe`'s models. Writes the checkpoint into `root`, which the
+    caller removes (phase 11 reads it). Returns the launch counts of the CLI's
+    compute."""
     import csv
     import os
     import shutil
-    import tempfile
     import numpy as np
     from videopainter_tpu_torch.convert import load_safetensors_dir
     from videopainter_tpu_torch.flagship import LORA_RANK, random_lora
@@ -961,8 +1008,6 @@ def phase_cli(torch, kernels, pipe):
     log("optional imports: " + ", ".join(f"{k} {v or 'missing'}" for k, v in imports.items()))
     gen = torch.Generator(device="cuda").manual_seed(808)
     tcfg = pipe.transformer.cfg
-    os.makedirs("build", exist_ok=True)
-    root = tempfile.mkdtemp(prefix="cli_ckpt_", dir="build")
     try:
         lora = random_lora(gen, pipe.transformer)
         torch.cuda.synchronize()
@@ -1125,8 +1170,517 @@ def phase_cli(torch, kernels, pipe):
             log("CLI main(argv): cv2 is missing, so the file I/O is not run (the compute above "
                 "ran all the same)")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "out"), ignore_errors=True)
     return launches
+
+
+# -- phase 11: evaluation ----------------------------------------------------------------
+
+EVAL_STEPS = 2                 # DPM steps a window (the cut; 50 in use)
+EVAL_HW = (480, 720)           # frame size of the corpus
+EVAL_WINDOW = (49, 32)         # frames a window, stride: overlap 17, so that bear's 81
+                               # frames make two whole windows with the prev-clip blend
+                               # (the sweep's own --anyl_overlap_frames is 8, stride 41)
+EVAL_PREV_CLIP_WEIGHT = 0.3    # the sweep's anyl config (evaluate/sweep.py)
+EVAL_VIDEOS = (("bear", 81), ("boat", 49))
+EVAL_CAPTION = "a synthetic clip of drifting colours"
+FLOAT64_REL = 1e-9             # float64 metrics, card against CPU (other summation orders)
+# The learned extractors, card against CPU: max |card - CPU| over max |CPU|
+# of each output. On an H100 (boat's composite frames) full fp32, as the
+# extractors run (TF32 off), reads LPIPS 1.1e-7, I3D 2.1e-7, CLIP image
+# 8.1e-7 and text 1.3e-6; the TF32 control (the same comparison with
+# `full_fp32` left undone) 9.2e-6, 6.1e-4, 3.8e-4 and 9.9e-4. Each limit lies
+# between the two, and the control must exceed it, or the check could not
+# tell TF32 from fp32. LPIPS's control is lower: the composite equals the
+# ground truth outside the hole, where TF32 rounds both inputs alike.
+LEARNED_REL = {"lpips": 1e-6, "i3d": 1e-5, "clip_image": 1e-5, "clip_text": 1e-5}
+CLIP_L14 = dict(   # CLIP ViT-L/14 (openai/clip-vit-large-patch14's published widths)
+    projection_dim=768,
+    text_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+                     num_attention_heads=12, vocab_size=49408, max_position_embeddings=77,
+                     projection_dim=768),
+    vision_config=dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24,
+                       num_attention_heads=16, patch_size=14, image_size=224,
+                       projection_dim=768))
+
+
+def require_modules(phase, names):
+    """Import each module or fail the phase, naming the one missing."""
+    import importlib
+    for name in names:
+        try:
+            importlib.import_module(name)
+        except ImportError as e:
+            raise RuntimeError(f"{phase} needs the {name!r} module: {e}") from e
+
+
+def smooth_clip(torch, generator, frames, height, width):
+    """uint8 frames [T, H, W, 3]: a random low-frequency colour field that
+    drifts from frame to frame, with a little pixel noise (so that JPEG,
+    SSIM and the extractors see structure rather than white noise)."""
+    import torch.nn.functional as F
+    dev = generator.device
+    base = torch.rand((1, 3, height // 32, width // 32), generator=generator, device=dev)
+    drift = torch.randn((frames, 3, height // 32, width // 32), generator=generator,
+                        device=dev).mul(0.04).cumsum(0)
+    field = F.interpolate((base + drift).clamp(0, 1), size=(height, width), mode="bilinear",
+                          align_corners=False)
+    noise = torch.randn(field.shape, generator=generator, device=dev) * (4 / 255)
+    return ((field + noise).clamp(0, 1) * 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def write_davis(root, name, video, masks):
+    """DAVIS layout: JPEGImages/480p/<name>/%05d.jpg, Annotations/480p/<name>/%05d.png."""
+    import os
+    import cv2
+    jd = os.path.join(root, "JPEGImages", "480p", name)
+    ad = os.path.join(root, "Annotations", "480p", name)
+    os.makedirs(jd, exist_ok=True)
+    os.makedirs(ad, exist_ok=True)
+    for i, (f, m) in enumerate(zip(video, masks)):
+        cv2.imwrite(os.path.join(jd, f"{i:05d}.jpg"), cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        cv2.imwrite(os.path.join(ad, f"{i:05d}.png"), m * 255)
+
+
+def write_extractors(torch, root, seed):
+    """The extractors' files at published size: LPIPS-squeeze (the golden's
+    `sd::` entries) as .npz, InceptionI3d (the golden's, 400 classes) as .pt,
+    CLIP ViT-L/14 from seeded random weights with `save_pretrained`, beside
+    clip_tiny's tokenizer files and the ViT-L/14 preprocessor (clip_tiny's at
+    224 pixels). Returns (lpips path, i3d path, clip dir)."""
+    import json
+    import os
+    import shutil
+    import numpy as np
+    from transformers import CLIPConfig, CLIPModel
+    g = np.load("tests/goldens/lpips.npz")
+    lpips_path = os.path.join(root, "lpips_squeeze.npz")
+    np.savez(lpips_path, **{k[4:]: g[k] for k in g.files if k.startswith("sd::")})
+    g = np.load("tests/goldens/i3d.npz")
+    i3d_path = os.path.join(root, "rgb_imagenet.pt")
+    torch.save({k[4:]: torch.from_numpy(np.array(g[k])) for k in g.files
+                if k.startswith("sd::")}, i3d_path)
+    clip_dir = os.path.join(root, "clip-vit-large-patch14")
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        clip = CLIPModel(CLIPConfig(**CLIP_L14))
+    n_params = sum(p.numel() for p in clip.parameters())
+    clip.save_pretrained(clip_dir)
+    del clip
+    tiny = "tests/goldens/clip_tiny"
+    for f in ("merges.txt", "vocab.json", "special_tokens_map.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(tiny, f), clip_dir)
+    with open(os.path.join(tiny, "preprocessor_config.json")) as f:
+        pre = json.load(f)
+    pre["size"], pre["crop_size"] = {"shortest_edge": 224}, {"height": 224, "width": 224}
+    with open(os.path.join(clip_dir, "preprocessor_config.json"), "w") as f:
+        json.dump(pre, f)
+    return lpips_path, i3d_path, clip_dir, n_params
+
+
+def max_rel(a, b):
+    """max |a - b| over max |b| (b the CPU's)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+LEARNED_FRAMES = {"lpips": 8, "i3d": 16, "clip_image": 4}   # the CPU's side is slow
+
+
+def learned_outputs(lpips, i3d, clip, pred, gt):
+    """The learned extractors' outputs on the first frames of [T, H, W, 3]
+    stacks in [0, 1]: LPIPS distances, the I3D features, the CLIP image
+    embeddings and the caption's CLIP text embedding, on the host."""
+    n = LEARNED_FRAMES
+    return {"lpips": lpips.batch(pred[:n["lpips"]], gt[:n["lpips"]]).cpu(),
+            "i3d": i3d(pred[:n["i3d"]]).cpu(),
+            "clip_image": clip.image_embeds(pred[:n["clip_image"]]).cpu(),
+            "clip_text": clip.text_embed(EVAL_CAPTION).cpu()}
+
+
+def tf32_control(torch):
+    """A stand-in for `evaluate.lpips.full_fp32` that leaves TF32 ON for
+    convolutions and matmuls: what the extractors would compute if their
+    switch to full fp32 stopped working."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tf32_on():
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    return tf32_on
+
+
+def learned_errors(torch, card, cpu, pred, gt):
+    """Each learned extractor on the card against the CPU on the same frames
+    (`card`, `cpu`: (LpipsExtractor, I3DExtractor, ClipExtractor); `pred`,
+    `gt`: [T, H, W, 3] float32 in [0, 1], numpy): max |card - CPU| over max
+    |CPU|, in full fp32 as the extractors run and with the TF32 control.
+    Returns (errors, control errors), dicts by output."""
+    from videopainter_tpu_torch.evaluate import extractors as ex
+    from videopainter_tpu_torch.evaluate import lpips as lp
+    on_card = [torch.from_numpy(x).cuda() for x in (pred, gt)]
+    want = learned_outputs(*cpu, pred, gt)
+    errs = {k: max_rel(v, want[k]) for k, v in learned_outputs(*card, *on_card).items()}
+    sound = lp.full_fp32
+    lp.full_fp32 = ex.full_fp32 = tf32_control(torch)
+    try:
+        control = {k: max_rel(v, want[k])
+                   for k, v in learned_outputs(*card, *on_card).items()}
+    finally:
+        lp.full_fp32 = ex.full_fp32 = sound
+    return errs, control
+
+
+def phase_eval(torch, kernels, root):
+    """Phase 11: the evaluation path at full width. Writes a DAVIS-layout
+    corpus (bear: 81 frames with a moving hole, boat: 49) at 480x720 and the
+    extractors at published size; builds phase 8's pipeline from its
+    checkpoint in `root` (bf16, branch, rank-256 ID adapter merged) through
+    `build_pipeline`, binds `use_flash=True`, and runs `run_inpainting_eval`
+    with the sweep's anyl prev-clip weight 0.3 (49-frame windows at overlap
+    17, so that bear makes two whole windows, where the sweep's default
+    overlap of 8 would leave one; replace_gt, mask_add, CFG 6, seed 42; 2
+    steps a window) and
+    the metrics on the card; B1's launches held to the code's count. Then the
+    prev-clip pair path on bear (the same model without the learnable
+    resample), a resume that runs no pipeline, the card's metrics against
+    the CPU path on boat's saved composite frames (the learned extractors
+    also with TF32 left on, a control that must fail their limit), and the
+    edit evaluation of bear. Returns the launch counts of the harness run."""
+    import dataclasses
+    import functools
+    import os
+    import numpy as np
+    from videopainter_tpu_torch.evaluate import cli as evcli
+    from videopainter_tpu_torch.evaluate import extractors as ex
+    from videopainter_tpu_torch.evaluate import metrics as M
+    from videopainter_tpu_torch.evaluate.datasets import DavisTestDataset
+    from videopainter_tpu_torch.evaluate.eval_edit import EditEvalConfig, run_edit_eval
+    from videopainter_tpu_torch.evaluate.harness import (EvalConfig, load_frames_dir,
+                                                         read_rows, run_inpainting_eval)
+    from videopainter_tpu_torch.evaluate.lpips import LpipsExtractor
+    from videopainter_tpu_torch.infer.inpaint import build_pipeline
+    from videopainter_tpu_torch.models.text_encoder import load_prompt_embeds
+
+    require_modules("phase 11", ("cv2", "transformers", "scipy"))
+    sync = torch.cuda.synchronize
+    hgt, wid = EVAL_HW
+    gen = torch.Generator(device="cuda").manual_seed(1111)
+    davis = os.path.join(root, "davis")
+    t0 = time.perf_counter()
+    clips = {}
+    for name, frames in EVAL_VIDEOS:
+        clips[name] = (smooth_clip(torch, gen, frames, hgt, wid), moving_masks(frames, hgt, wid))
+        write_davis(davis, name, *clips[name])
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lpips_path, i3d_path, clip_dir, clip_params = write_extractors(torch, root, 1112)
+    files_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = evcli.build_metrics(lpips_path, i3d_path, clip_dir, device="cuda")
+    sync()
+    extractors_s = time.perf_counter() - t0
+    log(f"eval corpus (DAVIS layout, {hgt}x{wid} JPEG + PNG: "
+        + ", ".join(f"{n} {t}" for n, t in EVAL_VIDEOS) + " frames) written in "
+        f"{corpus_s:.3f} s; extractors written in {files_s:.3f} s (CLIP ViT-L/14 "
+        f"{clip_params / 1e6:.1f} M parameters) and loaded on the card in {extractors_s:.3f} s")
+
+    t0 = time.perf_counter()
+    loaded = build_pipeline(os.path.join(root, "model"), os.path.join(root, "branch"),
+                            id_adapter=os.path.join(root, "lora"), dtype_str="bfloat16",
+                            device="cuda")
+    sync()
+    log(f"phase 8's checkpoint read by build_pipeline in {time.perf_counter() - t0:.3f} s")
+    stamps = []
+
+    def progress(i, n):
+        sync()
+        stamps.append(time.perf_counter())
+
+    pipe = functools.partial(loaded, use_flash=True, dtype=torch.bfloat16, progress_fn=progress)
+    emb = load_prompt_embeds(os.path.join(root, "embeds.npy")).cuda()
+
+    def encode(_caption):
+        return emb, torch.zeros_like(emb)
+
+    cfg = EvalConfig(output_dir=os.path.join(root, "eval_full"), num_inference_steps=EVAL_STEPS,
+                     num_frames=EVAL_WINDOW[0], stride=EVAL_WINDOW[1], guidance_scale=6.0,
+                     replace_gt=True,
+                     mask_add=True, prev_clip_weight=EVAL_PREV_CLIP_WEIGHT, seed=42)
+    marks = []
+
+    def marked(samples):   # metric seconds at each request: the previous video's are done
+        for sample in samples:
+            marks.append((sample["name"], dict(metrics.seconds), len(stamps),
+                          time.perf_counter()))
+            yield sample
+
+    tcfg = loaded.transformer.cfg
+    per_layer = tcfg.num_layers + loaded.branch.cfg.num_layers
+    # B1 calls a step: one per layer (CFG batched). bear's window 1 blends the
+    # previous window's states: on this learnable-resample model each DiT layer
+    # makes ONE call over [keys ‖ masked previous keys] (35,552), not a pair
+    expected = {"boat": 1 * EVAL_STEPS * per_layer, "bear": 2 * EVAL_STEPS * per_layer}
+    def dataset():
+        return DavisTestDataset(root=davis, height=hgt, width=wid)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = run_inpainting_eval(pipe, marked(dataset()), cfg,
+                                  metrics=metrics, encode_prompt_fn=encode, device="cuda",
+                                  caption_fn=lambda video, masks: EVAL_CAPTION)
+    sync()
+    eval_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    marks.append(("end", dict(metrics.seconds), len(stamps), time.perf_counter()))
+    rows = {r["name"]: r for r in read_rows(os.path.join(cfg.output_dir, "results.csv"))}
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd"] = sum(expected.values())
+    log(f"eval harness at {hgt}x{wid} (bear 2 windows, boat 1; {EVAL_STEPS} steps a window, "
+        f"prev-clip weight {EVAL_PREV_CLIP_WEIGHT}, B1 through use_flash): {eval_s:.3f} s wall, "
+        f"peak memory {peak / 2**30:.2f} GiB; flash_fwd launches {launches['flash_fwd']} "
+        f"(expected {want['flash_fwd']} = {per_layer} layers x {EVAL_STEPS} steps x 3 windows)")
+    for (name, sec0, st0, _), (_, sec1, st1, _) in zip(marks[:-1], marks[1:]):
+        n = dict(EVAL_VIDEOS)[name]
+        r = rows[name]
+        steps = [b - a for a, b in zip(stamps[st0:st1 - 1], stamps[st0 + 1:st1])]
+        per = {k: (sec1.get(k, 0.0) - sec0.get(k, 0.0)) / n * 1e3 for k in sec1}
+        log(f"  {name}: {n} frames, pipeline {r['time_per_frame_s'] * n:.3f} s "
+            f"({r['time_per_frame_s']:.4f} s a frame; s between its denoise steps "
+            + ", ".join(f"{x:.3f}" for x in steps) + "), metrics on the card in ms a frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(per.items())) + "; psnr "
+            f"{r['psnr']:.4f}, ssim {r['ssim']:.6f}, lpips {r['lpips']:.6f}, masked_psnr "
+            f"{r['masked_psnr']:.4f}, clip_score {r['clip_score']:.4f}, temporal_consistency "
+            f"{r['temporal_consistency']:.6f}")
+    log("  corpus: " + ", ".join(f"{k} {v:.6g}" for k, v in summary.items()))
+    finite = all(np.isfinite(v) for k, v in summary.items())
+    if not finite or set(rows) != {"bear", "boat", "__average__"}:
+        raise AssertionError(f"eval summary {summary}, rows {sorted(rows)}")
+    if launches != want:
+        raise AssertionError(f"eval launches {launches}, expected {want}")
+
+    # the prev-clip pair: the same weights without the learnable resample, as a
+    # model without the ID adapter runs window 1 (two B1 calls a DiT layer)
+    bear = next(s for s in dataset() if s["name"] == "bear")
+    loaded.transformer.cfg = dataclasses.replace(tcfg, id_pool_resample_learnable=False)
+    pair_want = dict.fromkeys(launches, 0)
+    pair_want["flash_fwd"] = EVAL_STEPS * per_layer + EVAL_STEPS * (2 * tcfg.num_layers
+                                                                   + loaded.branch.cfg.num_layers)
+    try:
+        kernels.reset_launches()
+        del stamps[:]
+        t0 = time.perf_counter()
+        pair = run_inpainting_eval(pipe, [bear], dataclasses.replace(
+            cfg, output_dir=os.path.join(root, "eval_pair")), encode_prompt_fn=encode,
+            device="cuda")
+        sync()
+        pair_s = time.perf_counter() - t0
+        pair_launches = dict(kernels.LAUNCHES)
+    finally:
+        loaded.transformer.cfg = tcfg
+    steps = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+    log(f"prev-clip pair path (bear, no learnable resample): {pair_s:.3f} s wall, s between "
+        "denoise steps " + ", ".join(f"{x:.3f}" for x in steps) + f"; flash_fwd launches "
+        f"{pair_launches['flash_fwd']} (expected {pair_want['flash_fwd']} = {per_layer} x "
+        f"{EVAL_STEPS} in window 0 + ({2 * tcfg.num_layers} + {loaded.branch.cfg.num_layers}) "
+        f"x {EVAL_STEPS} in window 1); psnr {pair['psnr']:.4f}, masked_psnr "
+        f"{pair['masked_psnr']:.4f}")
+    if pair_launches != pair_want or not all(np.isfinite(v) for v in pair.values()):
+        raise AssertionError(f"pair path: launches {pair_launches}, expected {pair_want}; "
+                             f"{pair}")
+
+    # resume: every video is done, so no pipeline runs and the averages come back
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    again = run_inpainting_eval(pipe, dataset(), cfg, metrics=M.MetricsCalculator(),
+                                encode_prompt_fn=encode, device="cuda")
+    resume_s = time.perf_counter() - t0
+    same = all(abs(again[k] - summary[k]) <= 1e-12 * abs(summary[k]) for k in again)
+    log(f"resume over the same directory: {resume_s:.3f} s, flash_fwd launches "
+        f"{kernels.LAUNCHES['flash_fwd']}, averages equal: {same} (no fvid: nothing "
+        f"accumulated, as in the JAX harness)")
+    if kernels.LAUNCHES["flash_fwd"] or not same or set(again) != set(summary) - {"fvid"}:
+        raise AssertionError(f"resume ran the pipeline or changed the averages: {again}")
+    del loaded, pipe
+    free_cuda(torch)
+
+    # the card's metrics against the CPU path, on boat's saved composite frames
+    boat_video, boat_masks = clips["boat"]
+    comp = load_frames_dir(os.path.join(cfg.output_dir, "comp_frames", "boat"), hgt, wid)
+    pred = comp.astype(np.float32) / 255
+    gt = boat_video.astype(np.float32) / 255
+    mf = boat_masks.astype(np.float32)
+    dev_t = [torch.from_numpy(x).cuda() for x in (pred, gt, mf)]
+    plain = M.MetricsCalculator()
+    n_f64 = 6   # frames (the CPU's float64 conv2d is slow)
+    t_cpu = time.perf_counter()
+    card_rows = plain.video_frame_metrics(*(x[:n_f64] for x in dev_t[:2]),
+                                          masks=dev_t[2][:n_f64])
+    cpu_rows = plain.video_frame_metrics(torch.from_numpy(pred[:n_f64]),
+                                         torch.from_numpy(gt[:n_f64]),
+                                         masks=torch.from_numpy(mf[:n_f64]))
+    f64_err = max(abs(c[k] - h[k]) / abs(h[k]) for c, h in zip(card_rows, cpu_rows)
+                  for k in h if np.isfinite(h[k]) and h[k] != 0)
+    ssim_card = M.frame_ssim(dev_t[0][:1], dev_t[1][:1])   # warm
+    sync()
+    t0 = time.perf_counter()
+    ssim_card = float(M.frame_ssim(dev_t[0][:1], dev_t[1][:1])[0])
+    sync()
+    ssim_card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ssim_host = M.ssim_reference(pred[0], gt[0])
+    ssim_host_s = time.perf_counter() - t0
+    ssim_err = abs(ssim_card - ssim_host) / abs(ssim_host)
+    cpu = (LpipsExtractor(lpips_path, device="cpu"), ex.I3DExtractor(i3d_path, device="cpu"),
+           ex.ClipExtractor(clip_dir, device="cpu"))
+    # build_metrics holds the ClipExtractor's bound methods; its text tower too is compared
+    card = (metrics.lpips_fn, metrics.video_feature_fn, metrics.image_embed_fn.batch.__self__)
+    errs, control = learned_errors(torch, card, cpu, pred, gt)
+    cpu_s = time.perf_counter() - t_cpu
+    log(f"card against CPU on boat's saved frames ({cpu_s:.3f} s): float64 metrics (psnr, "
+        f"ssim, mse, mae, global and masked, {n_f64} frames) max relative error {f64_err:.3e} "
+        f"(limit {FLOAT64_REL:g}); one frame's SSIM on the card {ssim_card_ms:.3f} ms, by the "
+        f"plain numpy / scipy version on the host {ssim_host_s:.3f} s (relative difference "
+        f"{ssim_err:.3e}); learned extractors ({LEARNED_FRAMES} frames, the caption's text "
+        "embedding), max |card - CPU| over max |CPU|, full fp32 / TF32 control (limit): "
+        + ", ".join(f"{k} {errs[k]:.3e} / {control[k]:.3e} ({LEARNED_REL[k]:g})" for k in errs)
+        + f"; FVID {summary['fvid']:.6g}")
+    if f64_err > FLOAT64_REL or ssim_err > FLOAT64_REL:
+        raise AssertionError(f"float64 metrics: card against CPU {f64_err}, SSIM against the "
+                             f"host plain version {ssim_err}")
+    if any(v > LEARNED_REL[k] for k, v in errs.items()) or not np.isfinite(summary["fvid"]):
+        raise AssertionError(f"learned extractors, card against CPU: {errs}; "
+                             f"fvid {summary['fvid']}")
+    if any(v <= LEARNED_REL[k] for k, v in control.items()):
+        raise AssertionError(f"the TF32 control passes the learned extractors' limits "
+                             f"{LEARNED_REL}: {control}; the check cannot tell TF32 from fp32")
+    del cpu, card
+
+    # the edit evaluation of bear's output against its source, at full size
+    bear_video, bear_masks = clips["bear"]
+    edited = load_frames_dir(os.path.join(cfg.output_dir, "comp_frames", "bear"), hgt, wid)
+    t0 = time.perf_counter()
+    edit = run_edit_eval([{"name": "bear", "edited": torch.from_numpy(edited).cuda() / 255,
+                           "source": torch.from_numpy(bear_video).cuda() / 255,
+                           "masks": torch.from_numpy(bear_masks).cuda().float(),
+                           "edited_caption": "a red balloon over the hole"}],
+                         EditEvalConfig(output_dir=os.path.join(root, "edit_eval")),
+                         metrics=metrics, device="cuda")
+    sync()
+    log(f"edit eval of bear ({len(edited)} frames at {hgt}x{wid}) in "
+        f"{time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in edit.items()))
+    if set(edit) != {"background_psnr", "background_ssim", "clip_score", "masked_clip_score",
+                     "temporal_consistency", "time_s"} or any(np.isnan(v)
+                                                              for v in edit.values()):
+        raise AssertionError(f"edit eval {edit}")
+    return launches
+
+
+def phase_eval_cli_small(torch, kernels):
+    """Phase 11 (small): the eval CLI and its sweep on the card at a tiny
+    width, exact attention as the JAX CLI has it: `evaluate.cli.main(argv)`
+    on tiny checkpoints and a small DAVIS corpus, its results.csv held to a
+    direct harness call's rows, a resume, then `evaluate.sweep.main` over
+    replace_gt true / false."""
+    import csv
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from videopainter_tpu_torch.config import TransformerConfig, VAEConfig
+    from videopainter_tpu_torch.evaluate import cli as evcli
+    from videopainter_tpu_torch.evaluate import sweep
+    from videopainter_tpu_torch.evaluate.datasets import DavisTestDataset
+    from videopainter_tpu_torch.evaluate.harness import (EvalConfig, read_rows,
+                                                         run_inpainting_eval)
+    from videopainter_tpu_torch.infer.inpaint import build_pipeline
+    from videopainter_tpu_torch.models import AutoencoderKLCogVideoX
+
+    require_modules("phase 11", ("cv2",))
+    gen = torch.Generator(device="cuda").manual_seed(1113)
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="eval_small_", dir="build")
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the CLI's run and the direct call
+    try:
+        vae = AutoencoderKLCogVideoX(VAEConfig.tiny(latent_channels=16), device="meta",
+                                     dtype=torch.float32).to_empty(device="cuda").init_random_(gen)
+        emb = torch.randn((1, 5, 12), generator=gen, device="cuda")
+        tcfg = TransformerConfig.tiny(in_channels=32, out_channels=16, sample_height=8,
+                                      sample_width=12)
+        write_tiny_checkpoint(torch, root, gen, tcfg, vae, emb, torch.float32)
+        del vae
+        davis = os.path.join(root, "davis")
+        for name in ("bear", "boat"):
+            write_davis(davis, name, smooth_clip(torch, gen, 9, 64, 96), moving_masks(9, 64, 96))
+        common = ["--model_path", os.path.join(root, "model"),
+                  "--inpainting_branch", os.path.join(root, "branch"),
+                  "--height", "64", "--width", "96", "--num_frames", "9",
+                  "--num_inference_steps", "2", "--mask_add", "--dtype", "float32",
+                  "--prompt_embeds_file", os.path.join(root, "embeds.npy"),
+                  "--device", "cuda"]
+        argv = common + ["--dataset", "davis", "--video_root", davis, "--dilate_size", "1",
+                         "--replace_gt", "--save_addr", os.path.join(root, "eval_cli")]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        avg = evcli.main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        rows = read_rows(os.path.join(root, "eval_cli", "results.csv"))
+        pipeline = build_pipeline(os.path.join(root, "model"), os.path.join(root, "branch"),
+                                  dtype_str="float32", device="cuda")
+        direct = run_inpainting_eval(
+            lambda **kw: pipeline(dtype=torch.float32, **kw),
+            DavisTestDataset(root=davis, height=64, width=96, dilate_iterations=1),
+            EvalConfig(output_dir=os.path.join(root, "eval_direct"), num_inference_steps=2,
+                       num_frames=9, replace_gt=True, mask_add=True),
+            encode_prompt_fn=lambda c: (emb, torch.zeros_like(emb)), device="cuda")
+        drows = read_rows(os.path.join(root, "eval_direct", "results.csv"))
+        diffs = [abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for a, b in zip(rows, drows)
+                 for k in b if k not in ("name", "time_per_frame_s")]
+        rows_equal = ([r["name"] for r in rows] == [r["name"] for r in drows]
+                      and all(list(a) == list(b) for a, b in zip(rows, drows))
+                      and max(diffs) <= 1e-6)
+        again = evcli.main(argv)
+        resumed = set(again) == set(avg) and all(
+            abs(again[k] - avg[k]) <= 1e-12 * abs(avg[k]) for k in avg)
+        log(f"small eval CLI on the card (exact attention, 2 videos of 9x64x96): "
+            f"{cli_s:.3f} s, columns {list(rows[0])}, rows {[r['name'] for r in rows]}; equal "
+            f"to a direct harness call's rows: {rows_equal} (max relative difference "
+            f"{max(diffs):.3e}, limit 1e-6); resume gives the same averages: {resumed}; "
+            f"launches {launches}")
+        if not (rows_equal and resumed) or any(launches.values()):
+            raise AssertionError("the small eval CLI disagrees with the direct harness call, "
+                                 "its resume, or launched a kernel on the exact path")
+        if not all(np.isfinite(v) for r in rows for k, v in r.items() if k != "name"):
+            raise AssertionError(f"non-finite eval rows {rows}")
+
+        sw = common + ["--configs", "davis", "--davis_root", davis, "--dilate_sizes", "0",
+                       "--replace_gt_values", "true", "false",
+                       "--save_addr", os.path.join(root, "sweep")]
+        t0 = time.perf_counter()
+        srows = sweep.main(sw)
+        with open(os.path.join(root, "sweep", "sweep_summary.csv"), newline="") as f:
+            recs = list(csv.DictReader(f))
+        cells = [os.path.isfile(os.path.join(root, "sweep", "davis", f"dilate0_rg{rg}",
+                                             "results.csv")) for rg in (1, 0)]
+        log(f"small sweep on the card: {len(srows)} cells in {time.perf_counter() - t0:.3f} s, "
+            f"results.csv per cell {cells}, summary rows "
+            + "; ".join(f"rg{r['replace_gt']} psnr {float(r['psnr']):.4f}" for r in recs))
+        if len(srows) != 2 or not all(cells) or [r["replace_gt"] for r in recs] != ["1", "0"]:
+            raise AssertionError("the sweep's layout or summary is wrong")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def free_cuda(torch):
@@ -1239,11 +1793,9 @@ def phase_small_variants(torch, kernels):
     import os
     import shutil
     import tempfile
-    import numpy as np
     from videopainter_tpu_torch import pipelines as P
     from videopainter_tpu_torch.config import (BranchConfig, SchedulerConfig,
                                                TransformerConfig, VAEConfig)
-    from videopainter_tpu_torch.flagship import FLAGSHIP_CALL, random_lora
     from videopainter_tpu_torch.infer import inpaint as cli
     from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBranch,
                                                CogVideoXTransformer3D)
@@ -1342,12 +1894,7 @@ def phase_small_variants(torch, kernels):
     root = tempfile.mkdtemp(prefix="cli_small_", dir="build")
     try:
         rs_cfg = TransformerConfig.tiny(in_channels=32, id_pool_resample_learnable=True, **small)
-        dit = build(lambda **kw: CogVideoXTransformer3D(rs_cfg, **kw))
-        br = build(lambda **kw: CogVideoXBranch(BranchConfig.from_transformer(rs_cfg), **kw))
-        for lin in br.branch_blocks:
-            torch.nn.init.normal_(lin.weight, std=0.02, generator=gen)
-        write_checkpoint(root, dit, br, vae, random_lora(gen, dit))
-        np.save(os.path.join(root, "embeds.npy"), embeds.cpu().numpy())
+        write_tiny_checkpoint(torch, root, gen, rs_cfg, vae, embeds, torch.bfloat16, lora=True)
         video_u8, mask_u8 = moving_mask_clip(torch, gen, 17, 64, 96)
         argv = ["--model_path", os.path.join(root, "model"),
                 "--inpainting_branch", os.path.join(root, "branch"),
@@ -1364,7 +1911,7 @@ def phase_small_variants(torch, kernels):
         exact = cli_frames(cli.get_args([a for a in argv if a != "--int8"]))
         # 2 windows (17 frames, 9 a window, overlap 1) x 2 steps, one call a
         # layer (ID resampling: 2 S keys in the same call)
-        want8 = 2 * 2 * (rs_cfg.num_layers + br.cfg.num_layers)
+        want8 = 2 * 2 * (rs_cfg.num_layers + BranchConfig.from_transformer(rs_cfg).num_layers)
         wrapper = attention.flash_attention_int8
         for flags in (["--int8_attn"], ["--int8_pv"]):
             args = cli.get_args(argv + flags)
@@ -1903,14 +2450,23 @@ def main() -> int:
     launches, pipe = timed_phase("2 single clip from a prompt", phase_pipeline, torch, kernels)
     check_no_yardstick(launches, "phase 2")
     free()
-    variant_launches = timed_phase("9 variants at full width (new)", phase_variants, torch,
+    variant_launches = timed_phase("9 variants at full width", phase_variants, torch,
                                    kernels, pipe)
     check_no_yardstick(variant_launches, "phase 9")
     free()
-    cli_launches = timed_phase("8 inference CLI from disk (new)", phase_cli, torch, kernels,
-                               pipe)
-    check_no_yardstick(cli_launches, "phase 8")
-    del pipe
+    os.makedirs("build", exist_ok=True)
+    ckpt_root = tempfile.mkdtemp(prefix="cli_ckpt_", dir="build")
+    try:   # phase 8 writes the checkpoint that phase 11 evaluates
+        cli_launches = timed_phase("8 inference CLI from disk", phase_cli, torch, kernels,
+                                   pipe, ckpt_root)
+        check_no_yardstick(cli_launches, "phase 8")
+        del pipe
+        free()
+        eval_launches = timed_phase("11 evaluation at full width (new)", phase_eval, torch,
+                                    kernels, ckpt_root)
+        check_no_yardstick(eval_launches, "phase 11")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     free()
     anyl_launches = timed_phase("3 any-length int8, streamed decode", phase_anyl_int8,
                                 torch, kernels)
@@ -1927,9 +2483,10 @@ def main() -> int:
     check_no_yardstick(kernels.LAUNCHES, "phases 4 and 7")
     log(f"launches of phases 4 and 7: {kernels.LAUNCHES}; the mma.sync yardsticks "
         "launched 0 times after phase 1")
-    timed_phase("10 small variants, CLI int8, fused to_qkv (new)", phase_small_variants,
+    timed_phase("10 small variants, CLI int8, fused to_qkv", phase_small_variants,
                 torch, kernels)
     check_no_yardstick(kernels.LAUNCHES, "phase 10")
+    timed_phase("11 small eval CLI and sweep (new)", phase_eval_cli_small, torch, kernels)
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -1952,7 +2509,8 @@ def main() -> int:
              "launches": launches["flash_fwd"],
              "launches_training": train_launches["flash_fwd"],
              "launches_cli": cli_launches["flash_fwd"],
-             "launches_variants": variant_launches["flash_fwd"], **stats},
+             "launches_variants": variant_launches["flash_fwd"],
+             "launches_eval": eval_launches["flash_fwd"], **stats},
             {"name": "flash_dq", "route": "cuda", "source": csrc + fa._DQ_SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention.py:164",
              "launches": train_launches["flash_dq"], **b2},

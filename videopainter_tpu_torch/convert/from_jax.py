@@ -19,6 +19,9 @@ both packages compute with the same weights.
  - LoRA tree (lora_A, lora_B [L, ...])      -> tensors (`lora_params`)
  - captured cross-window state (array, compressed, or the int8 dict) -> tensors
    (`captured_state`)
+ - the evaluation extractors' trees (`lpips_state_dict`, `i3d_state_dict`)
+   -> the state dicts of `evaluate.lpips.LPIPS` and `evaluate.extractors.
+   InceptionI3d`
 
 Training state crosses the same way (a branch tree through
 `branch_state_dict` into the branch module, a LoRA tree through
@@ -255,4 +258,60 @@ def vae_state_dict(params: dict) -> StateDict:
             _conv2d(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", blk["upsampler"]["conv"])
     _spatial_norm(sd, "decoder.norm_out", dec["norm_out"])
     _conv3d(sd, "decoder.conv_out.conv", dec["conv_out"]["conv"])
+    return sd
+
+
+# -- evaluation extractors --------------------------------------------------------------
+
+LPIPS_FIRE_SLOTS = ("slice2.1", "slice2.2", "slice3.1", "slice3.2", "slice4.1", "slice5.0",
+                    "slice6.0", "slice7.0")
+
+
+def lpips_state_dict(params: dict) -> StateDict:
+    """JAX LPIPS pytree (`convert_lpips_state_dict`: conv1, fires, lins) ->
+    the port's `evaluate.lpips.LPIPS` state dict, its shift / scale buffers
+    the module's own constants (the ones the JAX forward applies)."""
+    from ..evaluate.lpips import convert_lpips_state_dict
+
+    sd: StateDict = {}
+    _conv2d(sd, "net.slice1.0", params["conv1"])
+    for slot, fp in zip(LPIPS_FIRE_SLOTS, params["fires"]):
+        for name, key in (("squeeze", "squeeze"), ("expand1x1", "e1"), ("expand3x3", "e3")):
+            _conv2d(sd, f"net.{slot}.{name}", fp[key])
+    for k, w in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _t(np.asarray(w, np.float32).reshape(1, -1, 1, 1))
+    return convert_lpips_state_dict(sd)
+
+
+def i3d_state_dict(params: dict, num_classes: int = 400, eps: float = 1e-3) -> StateDict:
+    """JAX I3D pytree (`convert_i3d_state_dict`: DHWIO kernels, BatchNorm
+    folded into bn_scale / bn_bias) -> the port's `evaluate.extractors.
+    InceptionI3d` state dict. The fold is carried as BatchNorm statistics
+    that reproduce it exactly: gamma = scale, beta = bias, mean 0 and a
+    variance of 1 - eps (in float32, var + eps is exactly 1). The logits
+    layer, which the features do not reach, is zero."""
+    sd: StateDict = {}
+    var = np.float32(1) - np.float32(eps)
+
+    def unit(prefix, p):
+        kernel = np.asarray(p["kernel"], np.float32)
+        sd[f"{prefix}.conv3d.weight"] = _t(kernel.transpose(4, 3, 0, 1, 2))
+        scale = np.asarray(p["bn_scale"], np.float32)
+        sd[f"{prefix}.bn.weight"] = _t(scale)
+        sd[f"{prefix}.bn.bias"] = _t(np.asarray(p["bn_bias"], np.float32))
+        sd[f"{prefix}.bn.running_mean"] = torch.zeros(scale.shape)
+        sd[f"{prefix}.bn.running_var"] = torch.full(scale.shape, float(var))
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
+
+    cin = None
+    for name, p in params.items():
+        if "kernel" in p:
+            unit(name, p)
+            cin = p["kernel"].shape[-1]
+        else:
+            for branch, bp in p.items():
+                unit(f"{name}.{branch}", bp)
+            cin = sum(p[b]["kernel"].shape[-1] for b in ("b0", "b1b", "b2b", "b3b"))
+    sd["logits.conv3d.weight"] = torch.zeros((num_classes, cin, 1, 1, 1))
+    sd["logits.conv3d.bias"] = torch.zeros(num_classes)
     return sd
