@@ -5,7 +5,7 @@
 
 Phases (each fails the run loudly, exit code != 0):
  0. build the hand-written kernels from `videopainter_tpu_torch/csrc/` (one
-    nvcc per source, all eight side by side), print ptxas' report
+    nvcc per source, all nine side by side), print ptxas' report
     (registers, spills, setmaxnreg, wgmma serialisation), the HGMMA (bf16)
     and IGMMA (int8) wgmma counts of each wgmma kernel, and the I2F / F2I
     conversions of each int8 library, in all and inside its key loop;
@@ -91,7 +91,18 @@ Phases (each fails the run loudly, exit code != 0):
     fail);
     the edit evaluation; then
     the eval CLI and its sweep at a tiny width on the card (exact attention),
-    the CLI's rows held to a direct harness call's.
+    the CLI's rows held to a direct harness call's;
+12. the interactive demo (`segmentation`, `native`, `app`): the
+    connected-components kernel against its plain version (exact) on
+    [8, 1, 1024, 1024] masks at p = 0.1 / 0.41 / 0.7, all-zero, all-one,
+    1 x 1 and 1 x W masks, and against scipy on a serpentine and a spiral,
+    timed beside its bytes bound; Hiera-L SAM2 at 1024 (seeded weights) held
+    to the CPU on 2 frames in full fp32 (a TF32 control must fail the
+    limit); an `AppSession` on a 49x480x720 clip (two objects, a negative
+    click, `track()`: 49 image-encoder runs), its inpaint on phase 8's
+    checkpoint bound to use_flash=True (88 B1 launches), and the automatic
+    mask generator on frame 0 (two connected-components launches a kept
+    mask).
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -1683,6 +1694,458 @@ def phase_eval_cli_small(torch, kernels):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 12: the interactive demo ------------------------------------------------------
+
+CC_SHAPE = (8, 1, 1024, 1024)     # SAM2's image size, a batch of masks
+# shapes whose rows do not fill whole 1024-pixel tiles: the demo's frames
+# (a tile spans rows, the last one partial) and an odd height and width
+CC_GENERAL_SHAPES = ((8, 1, 480, 720), (8, 1, 331, 1000))
+CC_PROBS = (0.1, 0.41, 0.7)       # sparse specks, near 8-connected percolation, one giant
+DEMO_SIZE = "large"               # Hiera-L, the published SAM2 checkpoint's widths
+DEMO_STEPS = 2                    # DPM steps of the inpaint (the cut; 50 in use)
+DEMO_AMG_POINTS = 16              # points per side of the automatic mask generator
+DEMO_MIN_REGION = 100             # its min_mask_region_area: two CC launches a kept mask
+DEMO_AMG_NMS = 1.0                # its box NMS threshold: every candidate is kept
+# SAM2 mask logits, card against CPU: max |card - CPU| over max |CPU| on the
+# first 2 frames, both in full fp32. The same comparison with TF32 left on
+# (10-bit mantissa products through 48 Hiera blocks) must exceed it, or the
+# check could not tell TF32 from fp32.
+SAM2_REL = 1e-4
+
+
+def serpentine(n):
+    """Every other row full, joined alternately at the right and left ends:
+    one component whose path is about n * n / 2 pixels long."""
+    import numpy as np
+    m = np.zeros((n, n), np.uint8)
+    m[0::2] = 1
+    m[1::4, -1] = 1
+    m[3::4, 0] = 1
+    return m
+
+
+def spiral(n):
+    """A square spiral of 1-pixel walls one pixel apart, walked inwards."""
+    import numpy as np
+    m = np.zeros((n, n), np.uint8)
+    top, left, bottom, right = 0, 0, n - 1, n - 1
+    while top + 2 <= bottom and left + 2 <= right:
+        m[top, left:right + 1] = 1
+        m[top:bottom + 1, right] = 1
+        m[bottom, left:right + 1] = 1
+        m[top + 2:bottom + 1, left] = 1
+        m[top + 2, left:left + 3] = 1    # step into the next ring
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    return m
+
+
+def scipy_labels(mask):
+    """scipy.ndimage.label with the 3x3 structure, and each pixel's area, on
+    the host; [H, W] uint8 -> (labels, areas)."""
+    import numpy as np
+    from scipy import ndimage
+    lab, _ = ndimage.label(mask, structure=np.ones((3, 3), int))
+    areas = np.bincount(lab.ravel())[lab]
+    areas[lab == 0] = 0
+    return lab, areas
+
+
+def same_partition(labels, ref):
+    """Same foreground and a one-to-one map between the two numberings."""
+    import numpy as np
+    fg = ref > 0
+    if not np.array_equal(labels > 0, fg):
+        return False
+    pairs = np.unique(np.stack([labels[fg], ref[fg]]), axis=1)
+    return len(pairs[0]) == len(np.unique(pairs[0])) == len(np.unique(pairs[1]))
+
+
+def phase_cc(torch, kernels):
+    """Phase 12a: the connected-components kernel against its plain version
+    (exact: labels and areas are integers) on random [8, 1, 1024, 1024] masks
+    and on random masks at CC_GENERAL_SHAPES (tiles spanning rows, a partial
+    last tile), each at p = 0.1, 0.41, 0.7; all-zero and all-one masks,
+    1 x 1 and 1 x W masks;
+    against scipy (same partition, equal areas) on a serpentine and a spiral
+    at 1024^2, whose diameters are too long for the plain version; timed at
+    [8, 1, 1024, 1024] beside its bytes bound, the plain version and scipy on
+    the host. Returns the kernels-line numbers."""
+    import numpy as np
+    from videopainter_tpu_torch import native
+    require_modules("phase 12", ("scipy",))
+    gen = torch.Generator(device="cuda").manual_seed(1212)
+    t0 = time.perf_counter()
+    native.connected_components_cuda(torch.ones((1, 1, 8, 8), dtype=torch.uint8, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"connected_components: first call (build and launch) {time.perf_counter() - t0:.3f} s")
+    cases = {f"random p={p}": (torch.rand(CC_SHAPE, generator=gen, device="cuda") < p
+                               ).to(torch.uint8) for p in CC_PROBS}
+    for shape in CC_GENERAL_SHAPES:
+        for p in CC_PROBS:
+            cases[f"random p={p} at {shape[2]}x{shape[3]}"] = (
+                torch.rand(shape, generator=gen, device="cuda") < p).to(torch.uint8)
+    cases["all zero"] = torch.zeros(CC_SHAPE, dtype=torch.uint8, device="cuda")
+    cases["all one"] = torch.ones(CC_SHAPE, dtype=torch.uint8, device="cuda")
+    cases["1 x 1"] = torch.ones((2, 1, 1, 1), dtype=torch.uint8, device="cuda")
+    cases["1 x W"] = (torch.rand((4, 1, 1, 1024), generator=gen, device="cuda") < 0.6
+                      ).to(torch.uint8)
+    max_err, readings, plain_ms = 0, [], {}
+    for name, m in cases.items():
+        labels, areas = native.connected_components_cuda(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_labels, ref_areas = native.connected_components_reference(m)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        err = max((labels - ref_labels).abs().max().item(), (areas - ref_areas).abs().max().item())
+        max_err = max(max_err, err)
+        n_comp = int(ref_labels.flatten(1).amax(1).sum())
+        readings.append(f"{name} {tuple(m.shape)}: {n_comp} components, max |kernel - plain| "
+                        f"{err}, plain version {plain_ms[name]:.1f} ms")
+        if err:
+            raise AssertionError(f"connected_components disagrees with its plain version on "
+                                 f"{name}: max |difference| {err}")
+    for name, mask in (("serpentine", serpentine(1024)), ("spiral", spiral(1024))):
+        labels, areas = native.connected_components_cuda(
+            torch.from_numpy(mask).cuda()[None, None])
+        labels, areas = labels[0, 0].cpu().numpy(), areas[0, 0].cpu().numpy()
+        ref_labels, ref_areas = scipy_labels(mask)
+        ok = same_partition(labels, ref_labels) and np.array_equal(areas, ref_areas)
+        readings.append(f"{name} 1024^2: {int(ref_labels.max())} components of "
+                        f"{int(ref_areas.max())} pixels at most, scipy's partition and areas: "
+                        f"{ok}")
+        if not ok:
+            raise AssertionError(f"connected_components disagrees with scipy on the {name}")
+    log("connected_components against its plain version (exact) and scipy: "
+        + "; ".join(readings))
+
+    ms_by_p = {}
+    for p in CC_PROBS:
+        m = cases[f"random p={p}"]
+        ms_by_p[p] = cuda_time_ms(lambda m=m: native.connected_components_cuda(m), 10)
+    host = cases["random p=0.41"].cpu().numpy()
+    t0 = time.perf_counter()
+    for i in range(host.shape[0]):
+        scipy_labels(host[i, 0])
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    n_px = math.prod(CC_SHAPE)
+    bound_ms = 9.0 * n_px / H100_HBM_BYTES * 1e3   # 1 B read, 4 + 4 B written a pixel
+    ms = ms_by_p[0.41]
+    log(f"connected_components {list(CC_SHAPE)}: kernel " + ", ".join(
+        f"p={p} {t:.3f} ms" for p, t in ms_by_p.items()) + f"; bytes bound {bound_ms:.4f} ms "
+        f"({9 * n_px / 1e6:.1f} MB at 3.35 TB/s; p=0.41 at {bound_ms / ms * 100:.2f} % of it); "
+        f"plain version " + ", ".join(f"p={p} {plain_ms[f'random p={p}']:.1f} ms"
+                                      for p in CC_PROBS)
+        + f"; scipy.ndimage.label on the host {scipy_ms:.1f} ms (p=0.41, 8 masks)")
+    return {"max_abs_err": max_err, "ms": ms, "ms_by_p": {str(p): t for p, t in ms_by_p.items()},
+            "plain_ms": plain_ms["random p=0.41"], "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "scipy_host_ms": scipy_ms, "shape": list(CC_SHAPE)}
+
+
+def build_sam2(torch, seed):
+    """Hiera-L SAM2 at 1024 through `build_sam2_video_predictor`, seeded
+    random weights (no checkpoint is in the repository), on the card. The
+    object-score head's last bias is set to +10, so that the object gate
+    passes and the masks are the decoder's (with random weights the gate's
+    sign is a coin toss, and a gated frame is -1024 everywhere)."""
+    from videopainter_tpu_torch.ops.basic import init_random_
+    from videopainter_tpu_torch.segmentation import build_sam2_video_predictor
+    torch.manual_seed(seed)   # the prompt encoder's Gaussian matrix (a buffer)
+    pred = build_sam2_video_predictor(DEMO_SIZE, None, image_size=1024, device="cuda")
+    init_random_(pred, torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        pred.sam_mask_decoder.pred_obj_score_head.layers[-1].bias.fill_(10.0)
+    return pred.eval()
+
+
+def sam2_first_frames(pred, frames, clicks):
+    """The predictor on the first 2 frames: the clicks on frame 0, then the
+    propagation. Returns (mask logits of frames 0 and 1, the top FPN level of
+    frame 0) on the host."""
+    import numpy as np
+    s = pred.cfg.image_size
+    h, w = frames.shape[1:3]
+    state = pred.init_state(frames[:2])
+    for x, y, positive in clicks:
+        pred.add_new_points(state, 0, np.array([[x * s / w, y * s / h]], np.float32),
+                            np.array([1 if positive else 0], np.int32))
+    logits = dict(pred.propagate_in_video(state))
+    return np.stack([logits[0], logits[1]]), state.features[0]["backbone_fpn"][-1].cpu().numpy()
+
+
+DEMO_CLICKS = {0: [(360.0, 240.0, True), (200.0, 120.0, False)], 1: [(560.0, 360.0, True)]}
+
+
+def amg_cc_against_plain(torch, calls, chunk=128):
+    """The kernel's (mask, labels, areas) calls of an AMG pass held to the
+    plain version, a batch of masks at a time; returns the max |difference|."""
+    from videopainter_tpu_torch import native
+    err = 0
+    for i in range(0, len(calls), chunk):
+        part = calls[i:i + chunk]
+        ref_labels, ref_areas = native.connected_components_reference(
+            torch.cat([m for m, _, _ in part]))
+        err = max(err, (torch.cat([lab for _, lab, _ in part]) - ref_labels).abs().max().item(),
+                  (torch.cat([a for _, _, a in part]) - ref_areas).abs().max().item())
+    return err
+
+
+def phase_demo(torch, kernels, pipe, emb):
+    """Phase 12b: the interactive demo at full width. Hiera-L SAM2 at 1024
+    (`build_sam2_video_predictor`, seeded weights) held against the CPU on
+    the first 2 frames (full fp32; a TF32 control must fail the limit); an
+    `AppSession` on a 49x480x720 clip: two objects, one refined by a negative
+    click, `track()` (the image encoder must run 49 times: one feature cache
+    for both), then `inpaint` at 2 steps on `pipe` (a functools.partial of
+    the any-length pipeline; B1: 44 launches a step) with the prompt
+    embeddings `emb`; then the automatic mask generator on frame 0 (16 x 16
+    points, thresholds 0, box NMS 1.0 so that every candidate is kept,
+    min_mask_region_area 100: two connected-components launches a kept
+    mask, each held to the plain version). Returns the launches of the
+    inpaint ("app") and of the generator ("amg"), and the phase's times."""
+    import numpy as np
+    from videopainter_tpu_torch import native
+    from videopainter_tpu_torch.app.app import AppSession
+    from videopainter_tpu_torch.segmentation import SAM2VideoPredictor
+    from videopainter_tpu_torch.segmentation.image_predictor import (
+        AutoMaskConfig, SAM2AutomaticMaskGenerator, SAM2ImagePredictor)
+    from videopainter_tpu_torch.utils import numerics
+    require_modules("phase 12", ("cv2",))
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    pred = build_sam2(torch, 1213)
+    sync()
+    n_params = sum(p.numel() for p in pred.parameters())
+    log(f"SAM2 {DEMO_SIZE} at 1024 built and seeded on the card in "
+        f"{time.perf_counter() - t0:.3f} s: {n_params / 1e6:.1f} M parameters")
+    frames = smooth_clip(torch, torch.Generator(device="cuda").manual_seed(1214), 49, 480, 720)
+
+    # the card against the CPU on the first 2 frames, fp32 both; then the TF32 control
+    with torch.device("meta"):
+        cpu = SAM2VideoPredictor(pred.cfg)
+    cpu = cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in pred.state_dict().items()})
+    cpu.eval()
+    t0 = time.perf_counter()
+    want_logits, want_feat = sam2_first_frames(cpu, frames, DEMO_CLICKS[0])
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    got_logits, got_feat = sam2_first_frames(pred, frames, DEMO_CLICKS[0])
+    errs = {"logits": max_rel(got_logits, want_logits), "features": max_rel(got_feat, want_feat)}
+    sound = numerics.full_fp32
+    numerics.full_fp32 = tf32_control(torch)
+    try:
+        ctl_logits, ctl_feat = sam2_first_frames(pred, frames, DEMO_CLICKS[0])
+    finally:
+        numerics.full_fp32 = sound
+    control = {"logits": max_rel(ctl_logits, want_logits),
+               "features": max_rel(ctl_feat, want_feat)}
+    log(f"SAM2 card against CPU (2 frames, the CPU's side {cpu_s:.3f} s), max |card - CPU| "
+        f"over max |CPU|, full fp32 / TF32 control (limit {SAM2_REL:g}): mask logits "
+        f"{errs['logits']:.3e} / {control['logits']:.3e}, top FPN level {errs['features']:.3e} "
+        f"/ {control['features']:.3e}; max |logit| {np.abs(want_logits).max():.4f}, "
+        f"foreground share {float((want_logits > 0).mean()):.4f}")
+    if errs["logits"] > SAM2_REL:
+        raise AssertionError(f"SAM2 on the card against the CPU: {errs}")
+    if control["logits"] <= SAM2_REL:
+        raise AssertionError(f"the TF32 control passes the SAM2 limit {SAM2_REL}: {control}; "
+                             "the check cannot tell TF32 from fp32")
+
+    # the session: clicks, tracking (encoder and memory attention timed by hooks)
+    spans = {"encoder": [], "memory_attention": []}
+
+    def timing(mod, key):
+        def pre(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[key].append([ev])
+
+        def post(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[key][-1].append(ev)
+        return [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+
+    hooks = timing(pred.image_encoder, "encoder") + timing(pred.memory_attention,
+                                                           "memory_attention")
+
+    def encode(_prompt):
+        return emb, torch.zeros_like(emb)
+
+    session = AppSession(predictor=pred, pipe=pipe, encode_prompt_fn=encode, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    session.load_video(frames)
+    for obj, clicks in DEMO_CLICKS.items():
+        for x, y, positive in clicks:
+            session.click(0, x, y, positive=positive, obj_id=obj)
+    sync()
+    click_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    union = session.track()
+    sync()
+    track_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    track_launches = dict(kernels.LAUNCHES)
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in spans.items()}
+    n_enc = len(ms["encoder"])
+    coverage = {oid: float(m.mean()) for oid, m in session.obj_masks.items()}
+    log(f"app session (49x480x720, 2 objects, 3 clicks): clicks {click_s:.3f} s, track "
+        f"{track_s:.3f} s; image encoder runs {n_enc} (expected 49: one cache for both "
+        f"objects), {np.mean(ms['encoder']):.3f} ms a frame; memory attention "
+        f"{len(ms['memory_attention'])} runs, {np.mean(ms['memory_attention']):.3f} ms a frame; "
+        f"mask coverage by object {coverage}, union {float(union.mean()):.4f} (random weights: "
+        f"reported, not judged); launches {track_launches}")
+    if n_enc != 49 or any(track_launches.values()) or union.shape != (49, 480, 720):
+        raise AssertionError(f"tracking: {n_enc} encoder runs, launches {track_launches}, "
+                             f"masks {union.shape}")
+
+    # the inpaint: B1 once a layer a step (CFG batched)
+    per_step = pipe.func.transformer.cfg.num_layers + pipe.func.branch.cfg.num_layers
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["flash_fwd"] = per_step * DEMO_STEPS
+    steps = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = session.inpaint("a synthetic clip", num_inference_steps=DEMO_STEPS, seed=42,
+                          progress_fn=lambda i, n: (sync(), steps.append(time.perf_counter())))
+    sync()
+    inpaint_s = time.perf_counter() - t0
+    app_launches = dict(kernels.LAUNCHES)
+    log(f"app inpaint (49x480x720, {DEMO_STEPS} steps, CFG 6, replace_gt, mask_add, B1 through "
+        f"use_flash): {inpaint_s:.3f} s, steps ending at " + ", ".join(
+            f"{s - t0:.3f}" for s in steps) + f" s; flash_fwd launches {app_launches['flash_fwd']}"
+        f" (expected {want['flash_fwd']} = {per_step} layers x {DEMO_STEPS} steps); output "
+        f"{out.shape} {out.dtype}, side by side {session.side_by_side().shape}")
+    if app_launches != want or out.shape != (49, 480, 720, 3):
+        raise AssertionError(f"app inpaint launches {app_launches}, expected {want}")
+
+    # the automatic mask generator on frame 0: two CC launches a kept mask.
+    # box_nms_thresh 1.0 keeps every candidate (random weights give nearly
+    # one box to all of them), so the repair runs on hundreds of masks; each
+    # of the kernel's calls is held to its plain version afterwards
+    amg = SAM2AutomaticMaskGenerator(SAM2ImagePredictor(pred), AutoMaskConfig(
+        points_per_side=DEMO_AMG_POINTS, pred_iou_thresh=0.0, stability_score_thresh=0.0,
+        box_nms_thresh=DEMO_AMG_NMS, min_mask_region_area=DEMO_MIN_REGION))
+    kept, calls = [], []
+    repair, components = amg._postprocess_small_regions, native.get_connected_components
+
+    def counted(masks, *a):
+        kept.append(len(masks))
+        return repair(masks, *a)
+
+    def recorded(mask):
+        labels, areas = components(mask)
+        calls.append((mask.clone(), labels, areas))
+        return labels, areas
+
+    amg._postprocess_small_regions = counted
+    native.get_connected_components = recorded
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        anns = amg.generate(frames[0])
+        sync()
+        amg_s = time.perf_counter() - t0
+        amg_launches = dict(kernels.LAUNCHES)
+    finally:
+        native.get_connected_components = components
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want["connected_components"] = 2 * kept[0]
+    peak = torch.cuda.max_memory_allocated()
+    cc_err = amg_cc_against_plain(torch, calls)
+    log(f"automatic mask generator (frame 0, {DEMO_AMG_POINTS}x{DEMO_AMG_POINTS} points, "
+        f"thresholds 0, box NMS {DEMO_AMG_NMS}, min region {DEMO_MIN_REGION}): {amg_s:.3f} s, "
+        f"{kept[0]} masks kept by NMS, {len(anns)} after the repair's NMS; "
+        f"connected_components launches {amg_launches['connected_components']} (expected 2 x "
+        f"{kept[0]}), each call's labels and areas against the plain version: max "
+        f"|difference| {cc_err} over {len(calls)} masks {tuple(calls[0][0].shape)}; areas "
+        f"{sorted(a['area'] for a in anns)[-5:]} (the largest 5); peak memory of the demo "
+        f"{peak / 2**30:.2f} GiB")
+    if amg_launches != want or len(calls) != want["connected_components"] or not anns:
+        raise AssertionError(f"AMG launches {amg_launches}, expected {want}; {len(calls)} "
+                             f"recorded calls, {len(anns)} masks")
+    if cc_err:
+        raise AssertionError(f"connected_components disagrees with its plain version on the "
+                             f"AMG's masks: max |difference| {cc_err}")
+    del pred, session, amg, calls
+    return {"app": app_launches, "amg": amg_launches, "track_s": track_s,
+            "inpaint_s": inpaint_s, "amg_s": amg_s, "peak_gib": peak / 2**30}
+
+
+def int8_load_memory(torch, root):
+    """What `utils.compact_params` gains after the CLI's `--int8` load
+    (`infer.inpaint.load_pipeline`: build_pipeline, W8A8 with the bf16
+    weights freed) on phase 8's checkpoint: the allocator's allocated /
+    reserved / peak GiB after each step, with an empty_cache before
+    compaction as the control. The CLI does not compact: on the card the
+    control releases as much as compaction does."""
+    import os
+    from videopainter_tpu_torch.infer.inpaint import build_pipeline
+    from videopainter_tpu_torch.quantize import quantize_transformer_int8
+    from videopainter_tpu_torch.utils import compact_params
+    rows = []
+
+    def read(step):
+        torch.cuda.synchronize()
+        rows.append((step, *(f() / 2**30 for f in (torch.cuda.memory_allocated,
+                                                   torch.cuda.memory_reserved,
+                                                   torch.cuda.max_memory_allocated))))
+
+    torch.cuda.reset_peak_memory_stats()
+    pipe = build_pipeline(os.path.join(root, "model"), os.path.join(root, "branch"),
+                          id_adapter=os.path.join(root, "lora"), dtype_str="bfloat16",
+                          device="cuda")
+    read("bf16 load")
+    models = [m for m in (pipe.transformer, pipe.branch) if m is not None]
+    for m in models:
+        quantize_transformer_int8(m, free_source=True)
+    read("W8A8")
+    torch.cuda.empty_cache()
+    read("W8A8 + empty_cache (control)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moved = compact_params(*models)
+    read("compact_params")
+    compact_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    read("compact_params + empty_cache")
+    log(f"the CLI's --int8 load on phase 8's checkpoint, GiB allocated / reserved / peak since "
+        f"the last reset: " + "; ".join(f"{step} {a:.3f} / {r:.3f} / {m:.3f}"
+                                        for step, a, r, m in rows)
+        + f"; compact_params moved {moved / 2**30:.3f} GiB in {compact_s:.3f} s")
+    del pipe, models
+    free_cuda(torch)
+
+
+def phase_demo_from_checkpoint(torch, kernels, root):
+    """Phase 12: the CC kernel (12a), compact_params after the CLI's --int8
+    load of phase 8's checkpoint, then the demo (12b) with phase 8's
+    checkpoint read by `build_pipeline` and bound to use_flash=True (the app
+    passes none: the exact path's score matrix would not fit) and bf16."""
+    import functools
+    import os
+    from videopainter_tpu_torch.infer.inpaint import build_pipeline
+    from videopainter_tpu_torch.models.text_encoder import load_prompt_embeds
+    cc = phase_cc(torch, kernels)
+    free_cuda(torch)
+    int8_load_memory(torch, root)
+    t0 = time.perf_counter()
+    loaded = build_pipeline(os.path.join(root, "model"), os.path.join(root, "branch"),
+                            id_adapter=os.path.join(root, "lora"), dtype_str="bfloat16",
+                            device="cuda")
+    torch.cuda.synchronize()
+    log(f"phase 8's checkpoint read by build_pipeline in {time.perf_counter() - t0:.3f} s")
+    pipe = functools.partial(loaded, use_flash=True, dtype=torch.bfloat16)
+    emb = load_prompt_embeds(os.path.join(root, "embeds.npy")).cuda()
+    demo = phase_demo(torch, kernels, pipe, emb)
+    del loaded, pipe
+    free_cuda(torch)
+    return cc, demo
+
+
 def free_cuda(torch):
     gc.collect()
     torch.cuda.empty_cache()
@@ -2129,9 +2592,9 @@ def phase_train(torch, kernels):
     # reaches is recomputed once and has one backward. The backbone's block 0
     # is not among them: the first branch sample is added after it.
     with_backward = n_branch + n_layers - 1
-    expected = {"flash_fwd": n_steps * (n_branch + n_layers + with_backward),
-                "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward,
-                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0, **{k: 0 for k in OLD_KEYS}}
+    expected = {**dict.fromkeys(kernels.LAUNCHES, 0),
+                "flash_fwd": n_steps * (n_branch + n_layers + with_backward),
+                "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward}
     enc_per_step = len(enc_s) // n_steps
     for i, (w, m) in enumerate(zip(walls, metrics)):
         enc = sum(enc_s[i * enc_per_step:(i + 1) * enc_per_step])
@@ -2191,8 +2654,8 @@ def phase_train_lora(torch, kernels):
     m = {k: float(v) for k, v in m.items()}
     # the frozen branch runs without grad (2 forwards); every backbone block
     # holds trainable A / B: forward, recompute and backward each
-    expected = {"flash_fwd": 2 + 2 * depth, "flash_dq": depth, "flash_dkv": depth,
-                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0, **{k: 0 for k in OLD_KEYS}}
+    expected = {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": 2 + 2 * depth,
+                "flash_dq": depth, "flash_dkv": depth}
     b_max = {tgt: ab["lora_B"].abs().max().item() for tgt, ab in state.trainable.items()}
     log(f"LoRA step, full width, backbone cut to {depth} of 42 layers, rank {LORA_RANK}, "
         f"35,552 keys: {wall:.3f} s wall, " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
@@ -2397,6 +2860,7 @@ def main() -> int:
         from videopainter_tpu_torch import _kernels as kernels
         from videopainter_tpu_torch.ops import flash_attention as fa
         from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
+        from videopainter_tpu_torch import native
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing beside this script: {e}",
               file=sys.stderr)
@@ -2406,7 +2870,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t_all = t = time.perf_counter()
-    sources = (*fa.SOURCES, *fa8.SOURCES)
+    sources = (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES)
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
         for fut in [pool.submit(kernels.load, *src) for src in sources]:
             fut.result()
@@ -2462,9 +2926,14 @@ def main() -> int:
         check_no_yardstick(cli_launches, "phase 8")
         del pipe
         free()
-        eval_launches = timed_phase("11 evaluation at full width (new)", phase_eval, torch,
+        eval_launches = timed_phase("11 evaluation at full width", phase_eval, torch,
                                     kernels, ckpt_root)
         check_no_yardstick(eval_launches, "phase 11")
+        free()
+        cc, demo = timed_phase("12 the demo at full width (new)", phase_demo_from_checkpoint,
+                               torch, kernels, ckpt_root)
+        check_no_yardstick(demo["app"], "phase 12")
+        check_no_yardstick(demo["amg"], "phase 12")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     free()
@@ -2486,7 +2955,7 @@ def main() -> int:
     timed_phase("10 small variants, CLI int8, fused to_qkv", phase_small_variants,
                 torch, kernels)
     check_no_yardstick(kernels.LAUNCHES, "phase 10")
-    timed_phase("11 small eval CLI and sweep (new)", phase_eval_cli_small, torch, kernels)
+    timed_phase("11 small eval CLI and sweep", phase_eval_cli_small, torch, kernels)
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -2510,7 +2979,8 @@ def main() -> int:
              "launches_training": train_launches["flash_fwd"],
              "launches_cli": cli_launches["flash_fwd"],
              "launches_variants": variant_launches["flash_fwd"],
-             "launches_eval": eval_launches["flash_fwd"], **stats},
+             "launches_eval": eval_launches["flash_fwd"],
+             "launches_app": demo["app"]["flash_fwd"], **stats},
             {"name": "flash_dq", "route": "cuda", "source": csrc + fa._DQ_SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention.py:164",
              "launches": train_launches["flash_dq"], **b2},
@@ -2524,7 +2994,10 @@ def main() -> int:
             {"name": "flash_int8_uniform_fwd", "route": "cuda",
              "source": csrc + fa8._UNIFORM_SOURCE,
              "replaces": "tools/bench_int8_attn.py:37",
-             "launches": tool_launches["flash_int8_uniform_fwd"], **b5}]
+             "launches": tool_launches["flash_int8_uniform_fwd"], **b5},
+            {"name": "connected_components", "route": "cuda", "source": csrc + native._SOURCE,
+             "replaces": "videopainter_tpu/native/__init__.py:63",
+             "launches": demo["amg"]["connected_components"], **cc}]
     print(json.dumps({"kernels": rows}), flush=True)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

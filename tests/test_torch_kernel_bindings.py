@@ -14,7 +14,7 @@ from pathlib import Path
 
 import pytest
 
-from videopainter_tpu_torch import _kernels
+from videopainter_tpu_torch import _kernels, native
 from videopainter_tpu_torch.ops import flash_attention as fa
 from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
 
@@ -41,7 +41,7 @@ def parse_entries(text: str):
 def bindings():
     """{(source, function): argtypes} of every wrapper module."""
     out = {}
-    for source, signatures in (*fa.SOURCES, *fa8.SOURCES):
+    for source, signatures in (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES):
         for name, argtypes in signatures.items():
             out[(source, name)] = argtypes
     return out

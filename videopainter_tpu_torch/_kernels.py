@@ -13,7 +13,9 @@ common PTX in `hopper.cuh`, the two int8 kernels' common parts in
 `int8_wgmma.cuh`). `flash_fwd.cu`, `flash_bwd.cu` (dQ and dK/dV)
 and `flash_int8_fwd.cu` (both int8 entries) are the first, mma.sync versions
 of those kernels, kept as a yardstick that chip_smoke.py times against the
-new ones; no path of the port calls them.
+new ones; no path of the port calls them. `connected_components.cu`, the
+connected-components labelling of SAM2's mask post-processing, is the one
+kernel with no Pallas counterpart (the reference's own CUDA kernel).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
@@ -44,7 +46,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                             "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
-                            "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0}
+                            "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
+                            "connected_components": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS

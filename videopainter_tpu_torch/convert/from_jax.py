@@ -22,6 +22,8 @@ both packages compute with the same weights.
  - the evaluation extractors' trees (`lpips_state_dict`, `i3d_state_dict`)
    -> the state dicts of `evaluate.lpips.LPIPS` and `evaluate.extractors.
    InceptionI3d`
+ - the SAM2 tree (`sam2_state_dict`, the inverse of the JAX package's
+   `convert_sam2_state_dict`) -> the torch SAM2 names of `segmentation.SAM2Base`
 
 Training state crosses the same way (a branch tree through
 `branch_state_dict` into the branch module, a LoRA tree through
@@ -314,4 +316,132 @@ def i3d_state_dict(params: dict, num_classes: int = 400, eps: float = 1e-3) -> S
             cin = sum(p[b]["kernel"].shape[-1] for b in ("b0", "b1b", "b2b", "b3b"))
     sd["logits.conv3d.weight"] = torch.zeros((num_classes, cin, 1, 1, 1))
     sd["logits.conv3d.bias"] = torch.zeros(num_classes)
+    return sd
+
+
+# -- SAM2 ----------------------------------------------------------------------------------
+
+def _convT2d(sd: StateDict, prefix: str, p: dict) -> None:
+    """lax.conv_transpose kernel [kh, kw, O, I] -> ConvTranspose2d [I, O, kh, kw]."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if p.get("bias") is not None:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _mlp_layers(sd: StateDict, prefix: str, p: dict) -> None:
+    for i, lp in enumerate(p["layers"]):
+        _linear(sd, f"{prefix}.layers.{i}", lp)
+
+
+def _sam_attention(sd: StateDict, prefix: str, p: dict) -> None:
+    for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _linear(sd, f"{prefix}.{n}", p[n])
+
+
+def _nchw(x) -> torch.Tensor:
+    return _t(np.asarray(x).transpose(0, 3, 1, 2))
+
+
+def sam2_state_dict(params: dict) -> StateDict:
+    """The JAX package's SAM2 parameter tree (`convert_sam2_state_dict`'s
+    output, or a seeded JAX init) -> the torch SAM2 state dict that the port's
+    `segmentation.SAM2Base` loads: the inverse of `convert_sam2_state_dict`."""
+    sd: StateDict = {}
+    ie, t = params["image_encoder"], "image_encoder.trunk"
+    _conv2d(sd, f"{t}.patch_embed.proj", ie["patch_embed"])
+    sd[f"{t}.pos_embed"] = _nchw(ie["pos_embed"])
+    sd[f"{t}.pos_embed_window"] = _nchw(ie["pos_embed_window"])
+    for i, bp in enumerate(ie["blocks"]):
+        b = f"{t}.blocks.{i}"
+        _norm(sd, f"{b}.norm1", bp["norm1"])
+        _linear(sd, f"{b}.attn.qkv", bp["attn"]["qkv"])
+        _linear(sd, f"{b}.attn.proj", bp["attn"]["proj"])
+        _norm(sd, f"{b}.norm2", bp["norm2"])
+        _mlp_layers(sd, f"{b}.mlp", bp["mlp"])
+        if "proj" in bp:
+            _linear(sd, f"{b}.proj", bp["proj"])
+    for j, cp in enumerate(ie["neck"]["convs"]):
+        _conv2d(sd, f"image_encoder.neck.convs.{j}.conv", cp)
+
+    pe, g = params["prompt_encoder"], "sam_prompt_encoder"
+    sd[f"{g}.pe_layer.positional_encoding_gaussian_matrix"] = _t(pe["pe_gauss"])
+    for i in range(4):
+        sd[f"{g}.point_embeddings.{i}.weight"] = _t(np.asarray(pe["point_embeddings"])[i][None])
+    sd[f"{g}.not_a_point_embed.weight"] = _t(np.asarray(pe["not_a_point_embed"])[None])
+    sd[f"{g}.no_mask_embed.weight"] = _t(np.asarray(pe["no_mask_embed"])[None])
+    md = pe["mask_downscaling"]
+    for slot, name in ((0, "conv1"), (1, "ln1"), (3, "conv2"), (4, "ln2"), (6, "conv3")):
+        (_norm if name.startswith("ln") else _conv2d)(sd, f"{g}.mask_downscaling.{slot}",
+                                                        md[name])
+
+    dec, g = params["mask_decoder"], "sam_mask_decoder"
+    for n in ("iou_token", "mask_tokens", "obj_score_token"):
+        if n in dec:
+            sd[f"{g}.{n}.weight"] = _t(dec[n])
+    tr = dec["transformer"]
+    for i, lp in enumerate(tr["layers"]):
+        p = f"{g}.transformer.layers.{i}"
+        for n in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            _sam_attention(sd, f"{p}.{n}", lp[n])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _norm(sd, f"{p}.{n}", lp[n])
+        _mlp_layers(sd, f"{p}.mlp", lp["mlp"])
+    _sam_attention(sd, f"{g}.transformer.final_attn_token_to_image", tr["final_attn"])
+    _norm(sd, f"{g}.transformer.norm_final_attn", tr["norm_final"])
+    up = dec["output_upscaling"]
+    _convT2d(sd, f"{g}.output_upscaling.0", up["convT1"])
+    _norm(sd, f"{g}.output_upscaling.1", up["ln"])
+    _convT2d(sd, f"{g}.output_upscaling.3", up["convT2"])
+    for i, hp in enumerate(dec["hypernet_mlps"]):
+        _mlp_layers(sd, f"{g}.output_hypernetworks_mlps.{i}", hp)
+    _mlp_layers(sd, f"{g}.iou_prediction_head", dec["iou_head"])
+    if "pred_obj_score_head" in dec:
+        head = dec["pred_obj_score_head"]
+        if len(head["layers"]) == 1:
+            _linear(sd, f"{g}.pred_obj_score_head", head["layers"][0])
+        else:
+            _mlp_layers(sd, f"{g}.pred_obj_score_head", head)
+    for n in ("conv_s0", "conv_s1"):
+        if n in dec:
+            _conv2d(sd, f"{g}.{n}", dec[n])
+
+    ma = params["memory_attention"]
+    for i, lp in enumerate(ma["layers"]):
+        p = f"memory_attention.layers.{i}"
+        _sam_attention(sd, f"{p}.self_attn", lp["self_attn"])
+        _sam_attention(sd, f"{p}.cross_attn_image", lp["cross_attn_image"])
+        for n in ("linear1", "linear2"):
+            _linear(sd, f"{p}.{n}", lp[n])
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(sd, f"{p}.{n}", lp[n])
+    _norm(sd, "memory_attention.norm", ma["norm"])
+
+    me, g = params["memory_encoder"], "memory_encoder"
+    convs, lns = me["mask_down_convs"], me["mask_down_lns"]
+    for i, lnp in enumerate(lns):   # (conv, LayerNorm2d, GELU) per stage, then the 1x1 conv
+        _conv2d(sd, f"{g}.mask_downsampler.encoder.{3 * i}", convs[i])
+        _norm(sd, f"{g}.mask_downsampler.encoder.{3 * i + 1}", lnp)
+    _conv2d(sd, f"{g}.mask_downsampler.encoder.{3 * len(lns)}", convs[-1])
+    _conv2d(sd, f"{g}.pix_feat_proj", me["pix_feat_proj"])
+    for j, fp in enumerate(me["fuser"]):
+        p = f"{g}.fuser.layers.{j}"
+        _conv2d(sd, f"{p}.dwconv", fp["dwconv"])
+        _norm(sd, f"{p}.norm", fp["norm"])
+        _linear(sd, f"{p}.pwconv1", fp["pwconv1"])
+        _linear(sd, f"{p}.pwconv2", fp["pwconv2"])
+        sd[f"{p}.gamma"] = _t(fp["gamma"])
+    if "out_proj" in me:
+        _conv2d(sd, f"{g}.out_proj", me["out_proj"])
+
+    for n in ("maskmem_tpos_enc", "no_mem_embed", "no_mem_pos_enc", "no_obj_ptr"):
+        if n in params:
+            sd[n] = _t(params[n])
+    if "obj_ptr_proj" in params:
+        layers = params["obj_ptr_proj"]["layers"]
+        if len(layers) == 1:
+            _linear(sd, "obj_ptr_proj", layers[0])
+        else:
+            _mlp_layers(sd, "obj_ptr_proj", params["obj_ptr_proj"])
+    if "mask_downsample" in params:
+        _conv2d(sd, "mask_downsample", params["mask_downsample"])
     return sd

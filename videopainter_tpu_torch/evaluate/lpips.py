@@ -17,7 +17,6 @@ The module keeps the lpips package's parameter names (`net.slice1.0.weight`,
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..utils.numerics import full_fp32
 from .metrics import as_tensor
 
 LPIPS_CHANNELS = (64, 128, 256, 384, 384, 512, 512)
@@ -123,18 +123,6 @@ def lpips_forward(model: LPIPS, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     """a, b: [B, H, W, 3] fp32 in [-1, 1] (channels last, as the JAX
     package's `lpips_forward`) -> [B] LPIPS distances."""
     return model(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2))
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """Convolutions and matmuls in full fp32 (no TF32) for the duration: a
-    metric must not depend on the card's reduced-precision modes."""
-    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def load_state_file(path: str) -> Dict[str, np.ndarray]:

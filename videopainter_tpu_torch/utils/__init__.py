@@ -1,7 +1,8 @@
-"""Utilities of the entry points. The JAX package's `utils/memory.compact_params`
-has no counterpart: it defragments XLA's heap after in-place quantization,
-and PyTorch's caching allocator needs no such copy."""
+"""Utilities of the entry points: profiling regions, precision contexts and
+`compact_params` (one dense allocation per dtype after an in-place rewrite)."""
 
+from .memory import compact_params
+from .numerics import full_fp32
 from .profiling import annotate, maybe_profile, profile_region
 
-__all__ = ["annotate", "maybe_profile", "profile_region"]
+__all__ = ["annotate", "compact_params", "full_fp32", "maybe_profile", "profile_region"]
