@@ -102,7 +102,25 @@ Phases (each fails the run loudly, exit code != 0):
     click, `track()`: 49 image-encoder runs), its inpaint on phase 8's
     checkpoint bound to use_flash=True (88 B1 launches), and the automatic
     mask generator on frame 0 (two connected-components launches a kept
-    mask).
+    mask);
+13. parallel/ on the one card: (a) the ring's arithmetic in one process at
+    the flagship shapes: the joint [2x48, 226 + 17,550, 64] attention as each
+    rank of a seq-2 and a seq-3 ring computes it (B1 with lse on the text
+    block and every video shard, fp32 merges) against one B1 call, and the
+    ring backward at [1x48, 17,776, 64] (per-block B2 / B3 with the merged
+    lse, dK / dV summed over the ranks) against one B2 + B3 call, launches
+    held to n (1 + n), times beside the single call; (b) world 2 in two
+    processes on the card over gloo (`parallel.launch.run_local`), at full
+    width with the backbone cut to PAR_DEPTH layers, each against the same
+    computation in one process: the single-clip pipeline under model=2
+    (bf16, use_flash, 2 DPM steps, latents; the row-parallel bias on every
+    rank must fail the limit), the DiT under seq=2 with ring attention, a
+    W8A8 + int8-attention DiT forward under model=2 (the local amax must
+    fail the limit), two branch-SFT steps under data=2 with ZeRO-2 (the
+    parameters bit-equal on both ranks after each step) and one under seq=2
+    with the ring (B2 / B3 per ring block); every rank's launches held to
+    the code's counts; (c) `train(mesh=make_mesh(1, 1, 1))` on a one-rank
+    NCCL group, one step bit-equal to the meshless step.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -2807,6 +2825,316 @@ def phase_small(torch):
         raise AssertionError("small pipeline: kernel path disagrees with the exact path")
 
 
+# ---------------------------------------------------------------------------------------------
+# phase 13: parallel/ (mesh, tensor and sequence parallelism, ZeRO-2) on the one card
+
+PAR_DEPTH = 4              # backbone layers of phase 13b (of 42): two processes share one card
+PAR_PSNR_DB = 55.0         # bf16 TP pipeline latents / ring DiT sample vs one process, over
+                           # max|one process|: the row-parallel sums round partial products
+                           # to bf16 (TP: 65.2 dB), the ring merges blocks in fp32 (68.3 dB);
+                           # the row-parallel bias added on every rank (biases of std
+                           # PAR_BIAS_STD) must fall below it
+PAR_BIAS_STD = 0.5
+PAR_INT8_REL_L1 = 1e-5     # W8A8 + int8 attention under model=2 vs one process, mean |diff|
+                           # over mean |one process|: the int32 products and every scale are
+                           # equal, and a row-parallel linear sums its int32 partial products
+                           # before the scales (an fp32 sum flipped enough bf16 roundings,
+                           # each then a whole int8 step at the next layer, to read 3.6e-4)
+
+
+def par_psnr(a, b):
+    """10 log10(max|b|^2 / mse) of two float arrays (numpy)."""
+    import numpy as np
+    mse = float(np.square(a.astype(np.float64) - b).mean())
+    return 10 * math.log10(float(np.abs(b).max()) ** 2 / max(mse, 1e-30))
+
+
+def par_rel_l1(a, b):
+    import numpy as np
+    return float(np.abs(a.astype(np.float64) - b).mean() / np.abs(b).mean())
+
+
+def phase_ring_decomposition(torch, fa, kernels):
+    """Phase 13a: the ring's arithmetic at the flagship shapes in one process,
+    no communication. Forward: the joint [2x48, 226 + 17,550, 64] attention as
+    each rank of a seq-2 and a seq-3 ring computes it (text block, then every
+    video shard through B1 with lse, merged in fp32) against one B1 call on
+    the whole sequence. Backward at the training shape [1x48, 17,776, 64]:
+    every rank's per-block B2 / B3 with the merged lse, dK / dV summed over
+    the ranks, against one B2 + B3 call. Returns the launches and times."""
+    from videopainter_tpu_torch.parallel.ring_attention import (ring_backward_decomposition,
+                                                                 ring_forward_decomposition)
+
+    text, s_vid, h, d = 226, 17550, 48, 64
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def mk(b):   # heads split from a [B, S, H*D] projection by a view, as the model does
+        return torch.randn((b, text + s_vid, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+
+    out = {"launches": {}, "times": {}}
+    q, k, v = mk(2), mk(2), mk(2)
+    ref, ref_lse = fa.flash_attention_with_lse(q, k, v)
+    single_ms = cuda_time_ms(lambda: fa.flash_attention_with_lse(q, k, v), 3)
+    for n in (2, 3):
+        kernels.reset_launches()
+        worst = (0.0, 0.0)
+        for r in range(n):
+            o, lse = ring_forward_decomposition(q, k, v, text, n, r)
+            rows = torch.cat([torch.arange(text), text + torch.arange(r * s_vid // n,
+                                                                     (r + 1) * s_vid // n)])
+            rows = rows.to("cuda")
+            err, lim = flash_err(o, ref[:, :, rows])
+            lse_err = (lse - ref_lse[:, :, rows]).abs().max().item()
+            if err > lim or lse_err > LSE_TOL:
+                raise AssertionError(f"ring of {n}, rank {r}: out error {err:.3g} (limit "
+                                     f"{lim:.3g}), lse error {lse_err:.3g} (limit {LSE_TOL})")
+            worst = (max(worst[0], err / lim), max(worst[1], lse_err))
+        got = dict(kernels.LAUNCHES)
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": n * (1 + n)}
+        if got != want:
+            raise AssertionError(f"ring of {n} forward launches {got}, expected {want}")
+        rank_ms = cuda_time_ms(lambda: ring_forward_decomposition(q, k, v, text, n, 0), 3)
+        out["launches"][f"fwd_seq{n}"] = got["flash_fwd"]
+        out["times"][f"fwd_seq{n}"] = (rank_ms, n * rank_ms, single_ms)
+        log(f"13a ring forward, seq {n}, [2x48, 226 + 17,550, 64]: every rank within "
+            f"FLASH_REL_TOL / LSE_TOL (worst {worst[0]:.3f} of the out limit, lse "
+            f"{worst[1]:.3g}); {got['flash_fwd']} B1 launches (n (1 + n) = {n * (1 + n)}); "
+            f"B1 blocks + merges {rank_ms:.3f} ms a rank, {n * rank_ms:.3f} ms over the "
+            f"{n} ranks, against one B1 call with lse {single_ms:.3f} ms "
+            f"({n * rank_ms / single_ms:.3f}x the compute)")
+    del q, k, v, ref, ref_lse
+
+    q, k, v, dout = mk(1), mk(1), mk(1), mk(1)
+    scale = d ** -0.5
+
+    def single():
+        o, l = fa.flash_attention_with_lse(q, k, v)
+        return fa.flash_bwd_cuda(q, k, v, o, l, dout, scale, q.shape[2], None)
+    refs = single()
+    single_ms = cuda_time_ms(single, 3)
+    for n in (2, 3):
+        kernels.reset_launches()
+        grads = ring_backward_decomposition(q, k, v, dout, text, n)
+        got = dict(kernels.LAUNCHES)
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": n * (1 + n),
+                "flash_dq": n * (1 + n), "flash_dkv": n * (1 + n)}
+        if got != want:
+            raise AssertionError(f"ring of {n} backward launches {got}, expected {want}")
+        errs = []
+        for name, g, rf in zip(("dq", "dk", "dv"), grads, refs):
+            err, lim = flash_err(g, rf)
+            if err > lim:
+                raise AssertionError(f"ring of {n} backward {name}: error {err:.3g} "
+                                     f"(limit {lim:.3g})")
+            errs.append(err / lim)
+        all_ms = cuda_time_ms(lambda: ring_backward_decomposition(q, k, v, dout, text, n), 2)
+        out["launches"][f"bwd_seq{n}"] = got
+        out["times"][f"bwd_seq{n}"] = (all_ms / n, all_ms, single_ms)
+        log(f"13a ring backward, seq {n}, [1x48, 17,776, 64]: dQ / dK / dV within "
+            f"FLASH_REL_TOL of one B2 + B3 call (worst {max(errs):.3f} of the limit); "
+            f"launches {n * (1 + n)} each of B1, B2, B3; every rank's forward and backward "
+            f"{all_ms:.3f} ms in all, against one forward with lse + B2 + B3 "
+            f"{single_ms:.3f} ms ({all_ms / single_ms:.3f}x)")
+    return out
+
+
+def par_models(seed, *, depth=PAR_DEPTH, branch=True, vae=True, bias_std=0.0,
+               quantize=False, branch_dtype=None):
+    from videopainter_tpu_torch.config import BranchConfig, TransformerConfig, VAEConfig
+
+    tcfg = TransformerConfig.cogvideox_5b_i2v(num_layers=depth)
+    m = {"tcfg": tcfg.to_dict(), "seed": seed, "dtype": "bfloat16", "bias_std": bias_std,
+         "quantize": quantize,
+         "bcfg": BranchConfig.from_transformer(tcfg, num_layers=2).to_dict() if branch else None,
+         "vcfg": VAEConfig().to_dict() if vae else None}
+    if branch_dtype:
+        m["branch_dtype"] = branch_dtype
+    return m
+
+
+CLIP = {"seed": 131, "frames": 49, "height": 480, "width": 720, "text_len": 226,
+        "text_dim": 4096}
+
+
+def phase_parallel_ranks(torch, kernels):
+    """Phase 13b: world 2 on the one card, two processes over gloo
+    (`parallel.launch.run_local`; CUDA tensors, staged through host memory
+    where gloo needs it), each at full CogVideoX-5b-I2V width with the
+    backbone cut to PAR_DEPTH layers, each held to the same computation in one
+    process: the single-clip pipeline under model=2 (bf16, use_flash, 2 DPM
+    steps, latents), the DiT under seq=2 with the ring, a W8A8 + int8
+    attention DiT forward under model=2 (B4 on 24 local heads), two
+    branch-SFT steps under data=2 (ZeRO-2) and one under seq=2 with the ring;
+    with the two controls that must fail their limits. Returns the launches
+    of the ranks (summed) and the checks' numbers."""
+    import numpy as np
+
+    from videopainter_tpu_torch.config import SchedulerConfig
+    from videopainter_tpu_torch.parallel import run_local, workers
+
+    base = {"device": "cuda"}
+    pipe = dict(base, models=par_models(21, bias_std=PAR_BIAS_STD), clip=CLIP,
+                call={"num_inference_steps": 2, "guidance_scale": 6.0, "use_dynamic_cfg": True,
+                      "replace_gt": True, "mask_add": True, "use_flash": True,
+                      "output_type": "latent", "generator_seed": 5})
+    dit = dict(base, models=par_models(22, branch=False, vae=False), use_flash=True,
+               inputs={"seed": 7, "hidden_shape": (1, 13, 60, 90, 32),
+                       "text_shape": (1, 226, 4096), "timestep": np.array([500])})
+    dit8 = dict(dit, models=par_models(23, branch=False, vae=False, quantize=True),
+                use_flash="int8")
+    tsched = ("ddim", SchedulerConfig(prediction_type="v_prediction").to_dict())
+    bcfg = {"mask_add": True, "use_flash": True, "remat": True}
+    train = dict(base, models=par_models(24, branch_dtype="float32"), scheduler=tsched,
+                 bcfg=bcfg, optimizer={"lr": 1e-5}, generator_seed=3,
+                 batch=dict(CLIP, seed=132, b=2), steps=2, batch_dtype="bfloat16")
+    ring_train = dict(train, batch=dict(CLIP, seed=133, b=1), steps=1, seq="ring")
+
+    s0 = time.perf_counter()
+    refs = {"pipe": workers.pipeline_rank(pipe)["out"], "dit": workers.dit_rank(dit)["sample"],
+            "dit8": workers.dit_rank(dit8)["sample"], "train": workers.train_rank(train),
+            "ring_train": workers.train_rank(dict(ring_train, seq=None))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - s0
+    cases = [("pipeline_rank", dict(pipe, mesh=(1, 1, 2))),
+             ("pipeline_rank", dict(pipe, mesh=(1, 1, 2), control="bias_every_rank")),
+             ("dit_rank", dict(dit, mesh=(1, 2, 1), seq="ring")),
+             ("dit_rank", dict(dit8, mesh=(1, 1, 2))),
+             ("dit_rank", dict(dit8, mesh=(1, 1, 2), control="local_amax")),
+             ("train_rank", dict(train, mesh=(2, 1, 1))),
+             ("train_rank", dict(ring_train, mesh=(1, 2, 1)))]
+    s0 = time.perf_counter()
+    res = run_local(2, workers.cases_rank, cases, timeout=420, threads=0)
+    ranks_s = time.perf_counter() - s0
+    log(f"13b, full width with the backbone cut to {PAR_DEPTH} of 42 layers (two processes "
+        f"share the card): one-process references {ref_s:.1f} s; world 2 over gloo "
+        f"{ranks_s:.1f} s (routes {res[0][0]['routes']})")
+
+    checks = {}
+    for r, rank in enumerate(res):
+        tp, broken, ring, i8, i8_broken, dp, sp = rank
+        checks[f"tp_pipe_db_{r}"] = par_psnr(tp["out"], refs["pipe"])
+        checks[f"tp_pipe_control_db_{r}"] = par_psnr(broken["out"], refs["pipe"])
+        checks[f"ring_dit_db_{r}"] = par_psnr(ring["sample"], refs["dit"])
+        checks[f"int8_tp_rel_l1_{r}"] = par_rel_l1(i8["sample"], refs["dit8"])
+        checks[f"int8_tp_control_rel_l1_{r}"] = par_rel_l1(i8_broken["sample"], refs["dit8"])
+    log("13b TP pipeline (model=2, 2 DPM steps, latents) against one process: "
+        + ", ".join(f"rank {r} {checks[f'tp_pipe_db_{r}']:.2f} dB" for r in (0, 1))
+        + f" (limit {PAR_PSNR_DB} dB); control, row-parallel bias on every rank: "
+        + ", ".join(f"{checks[f'tp_pipe_control_db_{r}']:.2f} dB" for r in (0, 1)))
+    log("13b DiT, seq=2 ring: " + ", ".join(f"rank {r} {checks[f'ring_dit_db_{r}']:.2f} dB"
+                                             for r in (0, 1)) + f" (limit {PAR_PSNR_DB} dB)")
+    log("13b W8A8 + int8 attention, model=2 (24 local heads): rel L1 "
+        + ", ".join(f"{checks[f'int8_tp_rel_l1_{r}']:.3g}" for r in (0, 1))
+        + f" (limit {PAR_INT8_REL_L1}); control, local amax: "
+        + ", ".join(f"{checks[f'int8_tp_control_rel_l1_{r}']:.3g}" for r in (0, 1)))
+    for r in (0, 1):
+        if not checks[f"tp_pipe_db_{r}"] >= PAR_PSNR_DB > checks[f"tp_pipe_control_db_{r}"]:
+            raise AssertionError(f"TP pipeline or its control outside the limit: {checks}")
+        if not checks[f"ring_dit_db_{r}"] >= PAR_PSNR_DB:
+            raise AssertionError(f"ring DiT below the limit: {checks}")
+        if not (checks[f"int8_tp_rel_l1_{r}"] <= PAR_INT8_REL_L1
+                < checks[f"int8_tp_control_rel_l1_{r}"]):
+            raise AssertionError(f"int8 TP or its control outside the limit: {checks}")
+
+    # training: losses and the first step's synced gradient against one process
+    for name, ref, got in (("data=2 ZeRO-2", refs["train"], [x[5] for x in res]),
+                           ("seq=2 ring", refs["ring_train"], [x[6] for x in res])):
+        rel = max(abs(g["metrics"][i]["total_loss"] - m["total_loss"]) / abs(m["total_loss"])
+                  for g in got for i, m in enumerate(ref["metrics"]))
+        a, b = torch.from_numpy(got[0]["grad"]), torch.from_numpy(ref["grad"])
+        cos = torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0).item()
+        same = all(x == y for x, y in zip(got[0]["checksums"], got[1]["checksums"]))
+        log(f"13b training, {name}: losses " + ", ".join(
+            f"{g['metrics'][-1]['total_loss']:.6f}" for g in got)
+            + f" against {ref['metrics'][-1]['total_loss']:.6f} (worst relative {rel:.2e}, "
+            f"limit {TRAIN_LOSS_REL}), gradient cosine {cos:.6f} (min {TRAIN_GRAD_COSINE}), "
+            f"parameters bit-equal on both ranks after each step: {same}; optimizer state "
+            f"elements a rank {got[0]['opt_numel']:,} / {got[1]['opt_numel']:,} against "
+            f"{ref['opt_numel']:,} in one process")
+        if not (rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COSINE and same):
+            raise AssertionError(f"13b training {name} disagrees with one process")
+        checks[f"train_{name}"] = (rel, cos, got[0]["opt_numel"] / ref["opt_numel"])
+    dp = [x[5] for x in res]
+    if not dp[0]["opt_numel"] == dp[1]["opt_numel"] < 0.75 * refs["train"]["opt_numel"]:
+        raise AssertionError("ZeRO-2: the ranks do not split AdamW's moments")
+
+    # launches of every rank, held to the code's counts (per rank)
+    L, nb = PAR_DEPTH, 2
+    with_bwd = nb + L - 1
+    want = {
+        0: {"flash_fwd": 2 * (nb + L)},                 # 2 steps, CFG batched
+        1: {"flash_fwd": 2 * (nb + L)},
+        2: {"flash_fwd": 3 * L},                        # text block + 2 shards a layer
+        3: {"flash_int8_fwd": L}, 4: {"flash_int8_fwd": L},
+        5: {"flash_fwd": 2 * (nb + L + with_bwd), "flash_dq": 2 * with_bwd,
+            "flash_dkv": 2 * with_bwd},
+        6: {"flash_fwd": 3 * (nb + L + with_bwd), "flash_dq": 3 * with_bwd,
+            "flash_dkv": 3 * with_bwd}}
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    for rank in res:
+        for i, case in enumerate(rank):
+            expected = {**dict.fromkeys(kernels.LAUNCHES, 0), **want[i]}
+            if case["launches"] != expected:
+                raise AssertionError(f"13b case {cases[i][0]} {i}: launches "
+                                     f"{case['launches']}, expected {expected}")
+            if i not in (1, 4):   # the controls are checks, not the path
+                for k2, v2 in case["launches"].items():
+                    total[k2] += v2
+    log(f"13b launches over both ranks (controls excluded): {total}; comm of rank 0 by "
+        f"case: " + "; ".join(f"{i}: " + ", ".join(f"{k} {v['calls']} calls "
+                                                   f"{v['bytes'] / 2**20:.1f} MiB"
+                                                   for k, v in c["comm"].items() if v["calls"])
+                             for i, c in enumerate(res[0])))
+    return total, checks
+
+
+def phase_nccl_world1(torch, kernels):
+    """Phase 13c: the multi-card training loop at world size 1 on NCCL:
+    `train(mesh=make_mesh(1, 1, 1))` for one branch-SFT step at full width
+    (backbone cut to 2 layers), bit-equal to the same step without a mesh.
+    Returns its launches."""
+    import torch.distributed as dist
+
+    from videopainter_tpu_torch.config import SchedulerConfig
+    from videopainter_tpu_torch.parallel import workers
+
+    spec = {"device": "cuda", "models": par_models(31, depth=2, branch_dtype="float32"),
+            "scheduler": ("ddim", SchedulerConfig(prediction_type="v_prediction").to_dict()),
+            "bcfg": {"mask_add": True, "use_flash": True, "remat": True},
+            "batch": dict(CLIP, seed=134, b=1), "batch_dtype": "bfloat16"}
+    out_dir = tempfile.mkdtemp(prefix="nccl_world1_", dir="build")
+    try:
+        trainer = lambda d: dict(output_dir=d, max_train_steps=1, learning_rate=1e-5,
+                                 checkpointing_steps=100, validating_steps=100, log_every=1,
+                                 resume_from_checkpoint=None, seed=3)
+        plain = workers.trainer_rank(dict(spec, trainer=trainer(os.path.join(out_dir, "a"))))
+        try:   # make_mesh(1, 1, 1) starts a one-rank NCCL group on the card
+            meshed = workers.trainer_rank(dict(spec, trainer=trainer(os.path.join(out_dir, "b")),
+                                               mesh=(1, 1, 1)))
+            backend = dist.get_backend()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    equal = plain["checksum"] == meshed["checksum"] and all(
+        np_equal(plain["params"][k], meshed["params"][k]) for k in plain["params"])
+    log(f"13c train(mesh=make_mesh(1, 1, 1)) on {backend}, full width with the backbone cut "
+        f"to 2 of 42 layers: one step, parameters bit-equal to "
+        f"the meshless step: {equal}; all-reduce calls {meshed['comm']['all_reduce']['calls']}; "
+        f"launches {meshed['launches']}")
+    if backend != "nccl" or not equal or meshed["comm"]["all_reduce"]["calls"] < 1:
+        raise AssertionError("13c: the world-1 NCCL step differs from the meshless one")
+    return meshed["launches"]
+
+
+def np_equal(a, b):
+    import numpy as np
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
 def sass_stats(kernels, sources):
     """{source: {"HGMMA", "IGMMA" (bf16 / int8 wgmma instructions), "I2F", "F2I"
     (conversions), "I2F_loop", "F2I_loop" (those between a function's first
@@ -2956,6 +3284,17 @@ def main() -> int:
                 torch, kernels)
     check_no_yardstick(kernels.LAUNCHES, "phase 10")
     timed_phase("11 small eval CLI and sweep", phase_eval_cli_small, torch, kernels)
+    free()
+    ring13 = timed_phase("13a ring decomposition", phase_ring_decomposition, torch, fa, kernels)
+    free()
+    par_launches, _ = timed_phase("13b world 2 over gloo", phase_parallel_ranks, torch,
+                                  kernels)
+    free()
+    nccl_launches = timed_phase("13c NCCL at world size 1", phase_nccl_world1, torch, kernels)
+    for k, v in nccl_launches.items():
+        par_launches[k] += v
+    check_no_yardstick(par_launches, "phase 13")
+    free()
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -2980,17 +3319,30 @@ def main() -> int:
              "launches_cli": cli_launches["flash_fwd"],
              "launches_variants": variant_launches["flash_fwd"],
              "launches_eval": eval_launches["flash_fwd"],
-             "launches_app": demo["app"]["flash_fwd"], **stats},
+             "launches_app": demo["app"]["flash_fwd"],
+             "launches_parallel": par_launches["flash_fwd"],
+             "launches_ring_decomposition": sum(
+                 v if isinstance(v, int) else v["flash_fwd"]
+                 for v in ring13["launches"].values()), **stats},
             {"name": "flash_dq", "route": "cuda", "source": csrc + fa._DQ_SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention.py:164",
-             "launches": train_launches["flash_dq"], **b2},
+             "launches": train_launches["flash_dq"],
+             "launches_parallel": par_launches["flash_dq"],
+             "launches_ring_decomposition": sum(v["flash_dq"] for k, v in
+                                                ring13["launches"].items() if "bwd" in k),
+             **b2},
             {"name": "flash_dkv", "route": "cuda",
              "source": "videopainter_tpu_torch/csrc/flash_dkv_wgmma.cu",
              "replaces": "videopainter_tpu/ops/flash_attention.py:194",
-             "launches": train_launches["flash_dkv"], **b3},
+             "launches": train_launches["flash_dkv"],
+             "launches_parallel": par_launches["flash_dkv"],
+             "launches_ring_decomposition": sum(v["flash_dkv"] for k, v in
+                                                ring13["launches"].items() if "bwd" in k),
+             **b3},
             {"name": "flash_int8_fwd", "route": "cuda", "source": csrc + fa8._SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
-             "launches": anyl_launches["flash_int8_fwd"], **b4},
+             "launches": anyl_launches["flash_int8_fwd"],
+             "launches_parallel": par_launches["flash_int8_fwd"], **b4},
             {"name": "flash_int8_uniform_fwd", "route": "cuda",
              "source": csrc + fa8._UNIFORM_SOURCE,
              "replaces": "tools/bench_int8_attn.py:37",

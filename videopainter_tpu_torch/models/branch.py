@@ -7,6 +7,10 @@ projections (`branch_blocks.{i}`) of the block outputs, returned stacked and
 scaled by `conditioning_scale`. `norm_final`, `norm_out`, `proj_out` and
 `branch_x_embedder` exist in the reference state dict but are unused by the
 forward; they are kept so the state dict round-trips.
+
+With `seq_axis` / `ring_mesh` the blocks run sequence-parallel as the DiT's
+do (`parallel/sequence.py`); the features of every rank are gathered before
+they are returned, so the output is whole on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from torch import nn
 
 from ..config import BranchConfig, TransformerConfig
 from ..ops.basic import Linear
+from ..parallel.sequence import seq_shard
 from .dit import CogVideoXTransformer3D, _CogVideoXBase, checkpointed, run_block_calibrated
 
 
@@ -77,6 +82,8 @@ class CogVideoXBranch(_CogVideoXBase):
         calibrate: bool = False,   # also return the [L, n_sites] activation amax of the
                                    # dynamic int8 linears (quantize.calibrate_ascales)
         remat: bool = False,       # checkpoint every block (training)
+        seq_axis: Optional[str] = None,   # sequence parallelism over this mesh axis
+        ring_mesh=None,                   # ... through ring attention on this mesh
     ):
         """Returns stacked branch features [num_layers, B, S_vid, D] (with
         calibrate, the pair (features, amax)). cfg.wo_text runs video-only
@@ -86,23 +93,29 @@ class CogVideoXBranch(_CogVideoXBase):
                              "block and records its amaxes twice)")
         x = torch.cat([hidden_states, branch_cond], dim=-1)
         emb, h, enc_h, _ = self._embed(x, encoder_hidden_states, timestep)
+        sp = seq_shard(seq_axis, ring_mesh, h.shape[1])
+        if sp is not None:   # this rank's video tokens
+            h = sp.take(h, 1)
+            rope = None if rope is None else (sp.take(rope[0], 0), sp.take(rope[1], 0))
         wo_text = self.cfg.wo_text
         outs, amaxes = [], []
         for blk, proj in zip(self.transformer_blocks, self.branch_blocks):
             args = (h, None if wo_text else enc_h, emb, rope)
             if calibrate:
-                (h, e), amax = run_block_calibrated(blk, *args, use_flash=use_flash)
+                (h, e), amax = run_block_calibrated(blk, *args, use_flash=use_flash, sp=sp)
                 amaxes.append(amax)
             elif wo_text and remat:   # a checkpoint returns tensors: drop the None
                 h, e = checkpointed(lambda h_, blk=blk: blk(
-                    h_, None, emb, rope, use_flash=use_flash)[0])(h), None
+                    h_, None, emb, rope, use_flash=use_flash, sp=sp)[0])(h), None
             elif remat:
                 h, e = checkpointed(lambda h_, e_, blk=blk: blk(
-                    h_, e_, emb, rope, use_flash=use_flash))(h, enc_h)
+                    h_, e_, emb, rope, use_flash=use_flash, sp=sp))(h, enc_h)
             else:
-                h, e = blk(*args, use_flash=use_flash)
+                h, e = blk(*args, use_flash=use_flash, sp=sp)
             enc_h = enc_h if wo_text else e
             y = torch.nn.functional.linear(h, proj.weight.to(h.dtype))
             outs.append((y + proj.bias.to(y.dtype)) * conditioning_scale)
         out = torch.stack(outs)
+        if sp is not None:
+            out = sp.gather(out, 2)
         return (out, torch.stack(amaxes)) if calibrate else out

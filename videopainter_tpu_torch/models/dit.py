@@ -30,6 +30,17 @@ puts groups of k blocks under an outer checkpoint (group inputs stay, one
 group's block inputs at a time, one more forward of each group). The JAX
 package's scan-specific parts of that code (per-layer dynamic gather,
 optimization barrier) have no counterpart in a Python loop over modules.
+
+Parallelism (`parallel/`): a model made tensor-parallel by
+`parallel.sharding.shard_params` runs as it is (its linears and heads are
+local). `seq_axis` / `ring_mesh` run the blocks sequence-parallel
+(`parallel/sequence.py`): after the patch embed each rank keeps its shard
+of the video tokens, with its rows of the rotary tables, the branch samples,
+the masks and the previous-window and self-guidance states; attention
+gathers K / V over `seq`, or rings with `ring_mesh`; the video tokens are
+gathered back before the output projection, so inputs and outputs are whole
+on every rank (the per-token output head runs on the shard, before the
+gather). Captures gather the states of every rank.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from ..ops.feed_forward import FeedForward
 from ..ops.norms import AdaLayerNorm, LayerNormZero
 from ..ops.patch_embed import PatchEmbed, unpatchify
 from ..ops.sincos import get_3d_sincos_pos_embed
+from ..parallel.sequence import seq_shard
 
 
 def crop_pos_embedding(pos, cfg, text_len: int, num_frames: int,
@@ -110,6 +122,7 @@ class CogVideoXBlock(nn.Module):
                 prev_hidden_states: Optional[torch.Tensor] = None,  # [B, S_joint, D] raw
                 prev_clip_weight: Optional[float] = None,
                 prev_resample_mask: Optional[torch.Tensor] = None,
+                sp=None,   # parallel.sequence.SeqShard
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """encoder_hidden_states=None selects the wo_text path."""
         wo_text = encoder_hidden_states is None
@@ -129,7 +142,7 @@ class CogVideoXBlock(nn.Module):
                                     resample_mask=resample_mask,
                                     prev_hidden_states=norm_prev,
                                     prev_clip_weight=prev_clip_weight,
-                                    prev_resample_mask=prev_resample_mask)
+                                    prev_resample_mask=prev_resample_mask, sp=sp)
         hidden_states = hidden_states + gate_msa * attn_h
         if not wo_text:
             encoder_hidden_states = encoder_hidden_states + enc_gate_msa * attn_e
@@ -278,6 +291,8 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                                    # dynamic int8 linears (quantize.calibrate_ascales)
         remat: bool = False,       # checkpoint every block (training)
         remat_chunk: Optional[int] = None,   # blocks per outer checkpointed group
+        seq_axis: Optional[str] = None,      # sequence parallelism over this mesh axis
+        ring_mesh=None,                      # ... through ring attention on this mesh
     ) -> TransformerOutput:
         cfg = self.cfg
         if (prev_hidden_indices is not None or isinstance(prev_hidden_states, dict)) \
@@ -303,6 +318,7 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                                                 timestep, masks=masks)
         text_len, s_vid = enc_h.shape[1], h.shape[1]
         s_joint = text_len + s_vid
+        sp = seq_shard(seq_axis, ring_mesh, s_vid)
 
         # resample mask over the joint sequence
         resample_mask = None
@@ -314,6 +330,14 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         learnable = cfg.id_pool_resample_learnable
         attn_resample_mask = resample_mask if (id_pool_resample and learnable) else None
         prev_rs = prev_resample_mask if learnable else None
+        if sp is not None:   # this rank's video tokens from here to the gather
+            h = sp.take(h, 1)
+            rope = None if rope is None else (sp.take(rope[0], 0), sp.take(rope[1], 0))
+            patch_mask = sp.take(patch_mask, 1)
+            branch_block_samples = sp.take(branch_block_samples, 2)
+            self_guidance_hidden_states = sp.take(self_guidance_hidden_states, 2)
+            attn_resample_mask = sp.take_joint(attn_resample_mask, text_len)
+            prev_rs = sp.take_joint(prev_rs, text_len)
 
         n_layers = cfg.num_layers
         if branch_block_samples is not None:
@@ -345,12 +369,12 @@ class CogVideoXTransformer3D(_CogVideoXBase):
                 full[torch.arange(b, device=prev_h.device)[:, None],
                      prev_hidden_indices.long()] = prev_h
                 prev_h = full[:, :s_joint]
-            return prev_h
+            return prev_h if sp is None else sp.take_joint(prev_h, text_len)
 
         def block_kw(i: int) -> dict:
             return dict(use_flash=use_flash, resample_mask=attn_resample_mask,
                         prev_hidden_states=prev_for_layer(i), prev_clip_weight=prev_clip_weight,
-                        prev_resample_mask=prev_rs)
+                        prev_resample_mask=prev_rs, sp=sp)
 
         def run_block(i: int, h, enc_h):
             return self.transformer_blocks[i](h, enc_h, emb, rope, **block_kw(i))
@@ -369,7 +393,7 @@ class CogVideoXTransformer3D(_CogVideoXBase):
             return injected if gate_mask is None else torch.where(gate_mask, h, injected)
 
         def capture(h, enc_h):
-            ys = torch.cat([enc_h, h], dim=1)
+            ys = torch.cat([enc_h, h if sp is None else sp.gather(h, 1)], dim=1)
             if capture_indices is not None:
                 # compressed capture: keep only the masked-region tokens (pad
                 # slots gather a clamped in-range token; the consumer's scatter
@@ -424,6 +448,10 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         h = self.norm_final(h)
         h = self.norm_out(h, emb)
         h = self.proj_out(h)
+        if sp is not None:
+            # per-token ops above, so gathering their output is exact; the loss
+            # downstream is then replicated and each rank back-propagates its rows
+            h = sp.gather(h, 1)
         return TransformerOutput(
             sample=unpatchify(h, num_frames, height, width, cfg.patch_size),
             hidden_states_list=hs_list, resample_mask=resample_mask,

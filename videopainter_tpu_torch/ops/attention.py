@@ -27,6 +27,16 @@ padded, so the 2 S-key call needs no paged mask here.
 Linear(D, 3 D) named `to_qkv` (diffusers' fuse_qkv_projections, the
 FusedCogVideoXAttnProcessor2_0): one product where there were three, whose
 output is split into the same q, k and v.
+
+Under tensor parallelism (`parallel/sharding.shard_params`) `num_heads` is
+the rank's local head count and the projections hold its heads only; under
+sequence parallelism (`sp`, a `parallel.sequence.SeqShard`) the rank holds
+the text and its shard of the video tokens. K and V, and the masked or
+previous-window pages of the variants, are then all-gathered over `seq`
+before attention (the counterpart of GSPMD's all-gathers), so local queries
+attend to every key through the same kernels; or, on the plain joint path
+with `sp.ring`, the call goes to ring attention (`parallel/ring_attention`),
+which runs the bf16 kernel B1 whatever the `use_flash` mode.
 """
 
 from __future__ import annotations
@@ -130,6 +140,7 @@ def joint_attention(
     prev_hidden_states: Optional[torch.Tensor] = None,   # [B, S_joint, D] (pre-normed)
     prev_clip_weight: Optional[float] = None,
     prev_resample_mask: Optional[torch.Tensor] = None,   # bool [B, S_joint]
+    sp=None,                                             # parallel.sequence.SeqShard
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Variant selection mirrors the reference:
      - encoder_hidden_states is None      -> wo_text processor
@@ -142,50 +153,64 @@ def joint_attention(
     else:
         text_len = 0
         x = hidden_states
-    b, s, dim = x.shape
-    heads = attn.num_heads
-    split = lambda t: t.view(t.shape[0], t.shape[1], heads, dim // heads)
+    b, s, _ = x.shape
+    heads = attn.num_heads   # local heads under tensor parallelism
+    split = lambda t: t.view(t.shape[0], t.shape[1], heads, t.shape[2] // heads)
     norm_k = (lambda t: t) if attn.norm_k is None else attn.norm_k
     attend = _pick_flash(use_flash) if use_flash else sdpa
+    # under sequence parallelism the keys and values of every rank's video
+    # tokens ([B, S, H, D] rows) are gathered before attention
+    gather = (lambda t: t) if sp is None else (lambda t: sp.gather_kv(t, text_len))
+    heads_first = lambda t: t.transpose(1, 2)
+
+    use_resample = resample_mask is not None or prev_resample_mask is not None
+    has_prev = prev_hidden_states is not None and prev_clip_weight is not None
 
     q_flat, k_flat, v_flat = attn.project(x)
     q = split(q_flat)
     if attn.norm_q is not None:
         q = attn.norm_q(q)
-    q = _rope_video_slice(q, rope, text_len).transpose(1, 2)
-    k = _rope_video_slice(norm_k(split(k_flat)), rope, text_len).transpose(1, 2)
-    v = split(v_flat).transpose(1, 2)
+    q = heads_first(_rope_video_slice(q, rope, text_len))
+    k = _rope_video_slice(norm_k(split(k_flat)), rope, text_len)
+    v = split(v_flat)
 
-    use_resample = resample_mask is not None or prev_resample_mask is not None
-    has_prev = prev_hidden_states is not None and prev_clip_weight is not None
+    if sp is not None and sp.ring and text_len > 0 and not use_resample and not has_prev:
+        from ..parallel.ring_attention import ring_joint_attention
 
-    if use_resample:
-        # the mask multiplies the raw K / V projections
-        if has_prev:
-            m = prev_resample_mask[..., None]
-            _, km_flat, vm_flat = attn.project(prev_hidden_states, with_q=False)
-            km_flat = km_flat * m.to(km_flat.dtype) * prev_clip_weight
-            vm_flat = vm_flat * m.to(vm_flat.dtype) * prev_clip_weight
-        else:
-            m = resample_mask[..., None]
-            km_flat = k_flat * m.to(k_flat.dtype)
-            vm_flat = v_flat * m.to(v_flat.dtype)
-        km = _rope_video_slice(norm_k(split(km_flat)), rope, text_len).transpose(1, 2)
-        vm = split(vm_flat).transpose(1, 2)
-        # S_kv = 2 * S_q: the kernels take asymmetric lengths
-        out = attend(q, torch.cat([k, km], dim=2), torch.cat([v, vm], dim=2))
-    elif has_prev:
-        # the blend is linear in the attention outputs, so two calls replace
-        # the reference's two SDPAs
-        _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
-        pk = _rope_video_slice(norm_k(split(pk_flat)), rope, text_len).transpose(1, 2)
-        pv = split(pv_flat).transpose(1, 2)
-        w = prev_clip_weight
-        out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w
+        k, v = heads_first(k), heads_first(v)
+        out_t, out_v = ring_joint_attention(
+            q[:, :, :text_len], q[:, :, text_len:], k[:, :, :text_len], k[:, :, text_len:],
+            v[:, :, :text_len], v[:, :, text_len:], sp.group, use_flash=bool(use_flash))
+        out = torch.cat([out_t, out_v], dim=2)
     else:
-        out = attend(q, k, v)
+        k, v = heads_first(gather(k)), heads_first(gather(v))
+        if use_resample:
+            # the mask multiplies the raw K / V projections
+            if has_prev:
+                m = prev_resample_mask[..., None]
+                _, km_flat, vm_flat = attn.project(prev_hidden_states, with_q=False)
+                km_flat = km_flat * m.to(km_flat.dtype) * prev_clip_weight
+                vm_flat = vm_flat * m.to(vm_flat.dtype) * prev_clip_weight
+            else:
+                m = resample_mask[..., None]
+                km_flat = k_flat * m.to(k_flat.dtype)
+                vm_flat = v_flat * m.to(v_flat.dtype)
+            km = heads_first(gather(_rope_video_slice(norm_k(split(km_flat)), rope, text_len)))
+            vm = heads_first(gather(split(vm_flat)))
+            # S_kv = 2 * S_q: the kernels take asymmetric lengths
+            out = attend(q, torch.cat([k, km], dim=2), torch.cat([v, vm], dim=2))
+        elif has_prev:
+            # the blend is linear in the attention outputs, so two calls replace
+            # the reference's two SDPAs
+            _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
+            pk = heads_first(gather(_rope_video_slice(norm_k(split(pk_flat)), rope, text_len)))
+            pv = heads_first(gather(split(pv_flat)))
+            w = prev_clip_weight
+            out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w
+        else:
+            out = attend(q, k, v)
 
-    out = attn.to_out[0](out.transpose(1, 2).reshape(b, s, dim))
+    out = attn.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
     if encoder_hidden_states is None:
         return out, None
     return out[:, text_len:], out[:, :text_len]

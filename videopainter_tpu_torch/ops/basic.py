@@ -20,6 +20,20 @@ is treated as the identity, so a frozen int8 backbone passes gradients to
 whatever feeds it; the int8 weights and the scales get none. Both linears add
 a low-rank `lora` term when one is attached (`models/lora.attach_lora`),
 which carries gradients to A and B.
+
+Tensor parallelism (`parallel/sharding.shard_params`) marks a linear of a
+DiT block column- or row-parallel by setting its `tp` slot to a `TPSlot`;
+the weight then holds this rank's rows or columns. A column-parallel linear
+computes its local outputs (its input's gradient is summed over the `model`
+group). A row-parallel one sums its partial products over the group and
+adds the bias once, after the sum. A row-parallel `Int8Linear` with a
+dynamic scale takes the MAX of the per-token amax over the group first, so
+every rank quantizes with the single-card scale, and sums its int32 partial
+products over the group before they are scaled: the result is the
+single-card one bit for bit. An adapter follows its base: a full-size
+`lora_B` (column) or `lora_A` (row) is sliced to this rank's part at use,
+a row-parallel delta joins the sum, and both factors' gradients sum over
+the group.
 """
 
 from __future__ import annotations
@@ -62,19 +76,68 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+class TPSlot:
+    """Tensor-parallel placement of a linear: `kind` "col" or "row", the
+    `model` process group, and `index`, the positions of this rank's output
+    rows (col) or input columns (row) in the full weight, with `full` their
+    count there."""
+
+    def __init__(self, kind: str, group, index: torch.Tensor, full: int):
+        self.kind, self.group, self.index, self.full = kind, group, index, full
+
+
 def _lora_delta(mod: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
-    """scale * (x @ A) @ B of an attached adapter (A [in, r], B [r, out])."""
+    """scale * (x @ A) @ B of an attached adapter (A [in, r], B [r, out]);
+    on a tensor-parallel linear, a full-size A (row) or B (col) is sliced to
+    this rank's part, and the factors' gradients sum over the group."""
     a = getattr(mod, "lora_A", None)
     if a is None:
         return None
-    return (x @ a.to(x.dtype)) @ mod.lora_B.to(x.dtype) * mod.lora_scale.to(x.dtype)
+    b = mod.lora_B
+    tp = getattr(mod, "tp", None)
+    if tp is not None:
+        # each rank's delta covers its rows or columns only, so a factor's
+        # gradient sums over the group
+        from ..parallel.comm import copy_to
+        a, b = copy_to(a, tp.group), copy_to(b, tp.group)
+        if tp.kind == "row" and a.shape[0] == tp.full:
+            a = a.index_select(0, tp.index.to(a.device))
+        if tp.kind == "col" and b.shape[1] == tp.full:
+            b = b.index_select(1, tp.index.to(b.device))
+    return (x @ a.to(x.dtype)) @ b.to(x.dtype) * mod.lora_scale.to(x.dtype)
+
+
+def _tp_in(tp: Optional[TPSlot], x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel linear's input: its gradient sums over the group."""
+    if tp is None or tp.kind != "col":
+        return x
+    from ..parallel.comm import copy_to
+    return copy_to(x, tp.group)
+
+
+def _tp_out(tp: Optional[TPSlot], y: torch.Tensor, bias: Optional[torch.Tensor]):
+    """A row-parallel linear's partial output summed over the group; the
+    bias is added after the sum (once)."""
+    if tp is not None and tp.kind == "row":
+        from ..parallel.comm import reduce_from
+        y = reduce_from(y, tp.group)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 class Linear(nn.Linear):
+    tp: Optional[TPSlot] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = linear(x, self.weight, self.bias)
+        if self.tp is None:
+            y = linear(x, self.weight, self.bias)
+            delta = _lora_delta(self, x)
+            return y if delta is None else y + delta
+        row = self.tp.kind == "row"
+        x = _tp_in(self.tp, x)
+        y = linear(x, self.weight, None if row else self.bias)
         delta = _lora_delta(self, x)
-        return y if delta is None else y + delta
+        y = y if delta is None else y + delta
+        return _tp_out(self.tp, y, self.bias) if row else y
 
 
 def quantize_weight_int8(weight: torch.Tensor):
@@ -104,16 +167,21 @@ def int8_matmul(xq: torch.Tensor, weight_q: torch.Tensor) -> torch.Tensor:
 
 class Int8MatmulSTE(torch.autograd.Function):
     """y = clip(round(x32 / xs)) @ weight_q^T * xs * kscale with an exact int32
-    product. Backward is the straight-through estimator of the JAX package's
-    `_int8_matmul_ste`: round / clip and the dependence of a dynamic xs on x
-    are treated as the identity, so dx = (g * kscale) @ weight_q as a bf16
-    product with fp32 accumulation; xs, weight_q and kscale get no gradient."""
+    product (with `group`, a row-parallel one: the int32 partial products are
+    summed over the group before the scales). Backward is the straight-through
+    estimator of the JAX package's `_int8_matmul_ste`: round / clip and the
+    dependence of a dynamic xs on x are treated as the identity, so dx =
+    (g * kscale) @ weight_q as a bf16 product with fp32 accumulation; xs,
+    weight_q and kscale get no gradient."""
 
     @staticmethod
-    def forward(ctx, x32, xs, weight_q, kscale):
+    def forward(ctx, x32, xs, weight_q, kscale, group=None):
         ctx.save_for_backward(weight_q, kscale)
         xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
         acc = int8_matmul(xq.reshape(-1, weight_q.shape[1]), weight_q)
+        if group is not None:
+            from ..parallel.comm import all_reduce_
+            acc = all_reduce_(acc.contiguous(), group)
         return acc.reshape(*x32.shape[:-1], weight_q.shape[0]).float() * xs * kscale
 
     @staticmethod
@@ -124,7 +192,7 @@ class Int8MatmulSTE(torch.autograd.Function):
             dx = torch.matmul(gk, weight_q.to(torch.bfloat16)).float()
         else:   # the same product of the same bf16 values, summed in fp32
             dx = torch.matmul(gk.float(), weight_q.float())
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 class Int8Linear(nn.Module):
@@ -142,17 +210,30 @@ class Int8Linear(nn.Module):
         self.register_buffer("bias", bias)
         self.register_buffer("ascale", ascale)
         self.calib: Optional[List[torch.Tensor]] = None   # see `calibration`
+        self.tp: Optional[TPSlot] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        row = self.tp is not None and self.tp.kind == "row"
+        x = _tp_in(self.tp, x)
         x32 = x.float()
         if self.ascale is not None:
             xs = self.ascale.float()
         else:
             amax = x32.detach().abs().amax(dim=-1, keepdim=True)   # no grad through amax
+            if row:   # the amax of the whole hidden axis, as on one card
+                from ..parallel.comm import all_reduce_
+                amax = all_reduce_(amax.contiguous(), self.tp.group, "max")
             if self.calib is not None:
                 self.calib.append(amax.max())   # global amax, in call order
             xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-        y = Int8MatmulSTE.apply(x32, xs, self.weight_q, self.kscale)
+        y = Int8MatmulSTE.apply(x32, xs, self.weight_q, self.kscale,
+                                self.tp.group if row else None)
+        if row:   # the int32 products are summed already; an adapter's delta is not
+            delta = _lora_delta(self, x)
+            if delta is not None:
+                from ..parallel.comm import reduce_from
+                y = y + reduce_from(delta.float(), self.tp.group)
+            return (y if self.bias is None else y + self.bias.float()).to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.float()
         y = y.to(x.dtype)
@@ -193,8 +274,18 @@ def calibration(module: nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
+    # the `model` group when the norm is applied to this rank's heads only (an
+    # attention's norm_q / norm_k under tensor parallelism): its gradient then
+    # sums over the group
+    tp_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+        w, b = self.weight, self.bias
+        if self.tp_group is not None:
+            from ..parallel.comm import copy_to
+            w = None if w is None else copy_to(w, self.tp_group)
+            b = None if b is None else copy_to(b, self.tp_group)
+        return layer_norm(x, w, b, eps=self.eps)
 
 
 class GroupNorm(nn.GroupNorm):

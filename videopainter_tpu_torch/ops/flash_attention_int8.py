@@ -96,9 +96,14 @@ def _block_quantize(x32: torch.Tensor, blk: int):
 
 def quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, blk_q: int,
                  blk_k: int, int8_pv: bool) -> QuantizedQKV:
-    """The prologue of both the kernel and the plain version."""
-    k32 = k.float()
-    k32 = k32 - k32.mean(dim=2, keepdim=True)
+    """The prologue of both the kernel and the plain version. The K mean is
+    summed in float64, where the sum of 2^15 bf16 or fp32 keys of any
+    realistic spread of magnitudes is exact, so independent of the order a
+    reduction picks: a head's mean, its int8 keys and scales are then the
+    same whichever other heads share the tensor (tensor parallelism splits
+    them)."""
+    mean = k.sum(dim=2, keepdim=True, dtype=torch.float64) / k.shape[2]
+    k32 = k.float() - mean.float()
     q_i8, sq = _block_quantize(q.float(), blk_q)
     k_i8, sk = _block_quantize(k32, blk_k)
     if int8_pv:

@@ -183,6 +183,8 @@ class DenoiseConfig:
                                      # prediction at these steps (step 0 always runs)
     dpm_sde: bool = True             # draw SDE noise each DPM step (unless injected)
     mode: str = "dual"               # "dual" | "sft" | "plain" | "selfguidance"
+    seq_axis: Optional[str] = None   # sequence parallelism over this mesh axis
+    ring_mesh: Any = None            # DeviceMesh: ring attention over seq_axis
 
 
 def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
@@ -256,12 +258,13 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         if capture and inputs.capture_indices is not None:
             kw["capture_indices"] = rep(inputs.capture_indices)
             kw["capture_quant"] = dcfg.capture_quant
-        kw.update(return_hidden_states=capture, use_flash=dcfg.use_flash)
+        par = dict(seq_axis=dcfg.seq_axis, ring_mesh=dcfg.ring_mesh)
+        kw.update(return_hidden_states=capture, use_flash=dcfg.use_flash, **par)
         if dcfg.mode == "dual":
             branch_cond = torch.cat([masked_lat, mask[..., None]], dim=-1)
             branch_samples = branch(latent_video_input, embeds, branch_cond, timestep,
                                     rope=rope, conditioning_scale=dcfg.conditioning_scale,
-                                    use_flash=dcfg.use_flash)
+                                    use_flash=dcfg.use_flash, **par)
             return transformer(latent_model_input, embeds, timestep, rope=rope,
                                branch_block_samples=branch_samples,
                                branch_block_masks=mask if dcfg.mask_add else None,
@@ -281,7 +284,7 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             if i2v:
                 noised = torch.cat([noised, image_latents], dim=-1)
             g = transformer(noised, embeds, timestep, rope=rope, return_hidden_states=True,
-                            use_flash=dcfg.use_flash)
+                            use_flash=dcfg.use_flash, **par)
             sg = g.hidden_states_list[:, :, embeds.shape[1]:]
             del g
             return transformer(latent_model_input, embeds, timestep, rope=rope,

@@ -172,6 +172,8 @@ class CogVideoXI2VDualInpaintPipeline:
         output_type: str = "np",
         use_flash: Union[bool, str] = False,
         sequential_cfg: bool = False,
+        seq_axis: Optional[str] = None,
+        ring_mesh=None,
         skip_steps: Optional[Tuple[int, ...]] = None,
         progress_fn: Optional[Callable[[int, int], None]] = None,
         dtype=torch.float32,
@@ -183,6 +185,10 @@ class CogVideoXI2VDualInpaintPipeline:
         prompt_embeds are given (prompt_embeds take precedence).
         use_flash: True for the hand-written bf16 flash-attention kernel,
         "int8" / "int8pv" for the int8 one (their plain versions on the CPU).
+        seq_axis: sequence parallelism of the DiT and branch calls over this
+        axis of the mesh entered with `parallel.use_mesh` (or `ring_mesh`,
+        which also routes attention through the ring). Run on every rank of
+        the mesh; each returns the whole video.
         """
         if video.shape[1] > 49:
             raise ValueError(f"num_frames {video.shape[1]} > 49; longer videos need "
@@ -218,7 +224,8 @@ class CogVideoXI2VDualInpaintPipeline:
             mask_add=mask_add, mask_background=mask_background, add_first=add_first,
             wo_text=wo_text, id_pool_resample=id_pool_resample,
             use_flash=use_flash, sequential_cfg=sequential_cfg,
-            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode)
+            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode,
+            seq_axis=seq_axis, ring_mesh=ring_mesh)
         n_steps = len(timesteps)
         denoise = make_denoise_fn(
             self.transformer, self.branch, self.scheduler, dcfg, timesteps,

@@ -72,6 +72,8 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         output_type: str = "np",
         use_flash: Union[bool, str] = False,
         sequential_cfg: bool = False,
+        seq_axis: Optional[str] = None,
+        ring_mesh=None,
         skip_steps: Optional[Tuple[int, ...]] = None,  # the capture step always evaluates
         stream_decode: bool = False,
         vae_device: Optional[Union[str, torch.device]] = None,   # the streaming decode's VAE
@@ -131,7 +133,8 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
             mask_add=mask_add, mask_background=mask_background, add_first=add_first,
             wo_text=wo_text, id_pool_resample=id_pool_resample,
             use_flash=use_flash, sequential_cfg=sequential_cfg,
-            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode)
+            skip_steps=tuple(skip_steps) if skip_steps else None, mode=self._mode,
+            seq_axis=seq_axis, ring_mesh=ring_mesh)
 
         def window_start(w: int) -> int:
             if w == 0:

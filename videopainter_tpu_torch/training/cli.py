@@ -4,8 +4,15 @@ Counterpart of `videopainter_tpu/training/cli.py`, with the same flags.
 Reference entry points: train/VideoPainter.sh -> train_cogvideox_inpainting_
 i2v_video.py (branch) and train/VideoPainterID.sh -> ..._resample.py (LoRA);
 the ~95 argparse flags map onto the dataclass configs here. Runs on one card
-(`--device cpu` for the CPU); the mesh flags accept only 1 until multi-chip
-training is ported.
+(`--device cpu` for the CPU), or on a mesh of ranks (`--mesh_data`,
+`--mesh_seq`, `--mesh_model`, `--dcn_data`; `--mesh_data 0` takes every rank
+left over), launched one process per card:
+
+    torchrun --nproc_per_node 8 -m videopainter_tpu_torch.training.cli \
+        --mesh_data 8 ...   # the reference's 8-GPU ZeRO-2 data parallelism
+
+(`parallel.initialize_distributed` reads torchrun's environment; a mesh
+larger than the world raises `ValueError`).
 
 Usage (branch SFT):
     python -m videopainter_tpu_torch.training.cli \
@@ -184,14 +191,15 @@ def get_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; never falls back on its own")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel size (only 1: multi-chip training is "
-                        "not ported yet)")
+                   help="data-parallel size (0 = every rank left over; default 1 = "
+                        "one rank, no mesh)")
     p.add_argument("--mesh_seq", type=int, default=1,
-                   help="sequence-parallel size (only 1)")
+                   help="sequence-parallel size (the seq axis)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel size (only 1)")
+                   help="tensor-parallel size (Megatron-style block linears)")
     p.add_argument("--dcn_data", type=int, default=1,
-                   help="multi-slice data-parallel factor (only 1)")
+                   help="multi-node data-parallel factor (the gradient average "
+                        "crosses nodes; needs a torchrun launch)")
     return p.parse_args(argv)
 
 
@@ -225,11 +233,23 @@ def main(argv=None):
 
     if args.resolution:
         args.height, args.width = args.resolution
-    for flag in ("mesh_data", "mesh_seq", "mesh_model", "dcn_data"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag} {getattr(args, flag)}: multi-chip "
-                                      "training is not ported yet (only 1)")
+    # distribution: the reference's `accelerate launch` 8-GPU ZeRO-2 setup as
+    # a mesh (data-parallel batches, ZeRO-2 optimizer state, optional seq /
+    # model axes); one rank and no other axes keep the one-card path
+    from ..parallel import initialize_distributed, make_hybrid_mesh
+
+    initialize_distributed()
     device = resolve_device(args.device)
+    # every rank makes the same default-initialised weights (the branch's
+    # unused heads, a fresh adapter) from the same seed
+    torch.manual_seed(args.seed)
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    data = args.mesh_data or max(world // (args.mesh_seq * args.mesh_model * args.dcn_data), 1)
+    mesh = None
+    if data * args.mesh_seq * args.mesh_model * args.dcn_data > 1:
+        mesh = make_hybrid_mesh(dcn_data=args.dcn_data, data=data, seq=args.mesh_seq,
+                                model=args.mesh_model, device=device.type)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
     frozen_dtype = None
     if args.mixed_precision in ("fp16", "bf16"):
         if args.mixed_precision == "fp16":
@@ -307,7 +327,8 @@ def main(argv=None):
         args.max_train_steps = args.num_train_epochs * steps_per_epoch
         print(f"max_train_steps = {args.max_train_steps} ({args.num_train_epochs} epochs)")
     if args.scale_lr:
-        args.learning_rate *= args.gradient_accumulation_steps * args.train_batch_size
+        args.learning_rate *= (args.gradient_accumulation_steps * args.train_batch_size
+                               * max(args.mesh_data, 1) * max(args.dcn_data, 1))
 
     # prompt embedding: precomputed or T5
     if args.prompt_embeds_file:
@@ -334,7 +355,9 @@ def main(argv=None):
         else:
             print("latent cache: GT-video moments only (mask transforms "
                   "re-randomize the masked video)")
-    cache_dir = os.path.join(args.output_dir, "latent_cache")
+    # one cache a rank under a mesh: ranks never write the same file
+    cache_dir = os.path.join(args.output_dir, "latent_cache" if mesh is None else
+                             f"latent_cache_rank{torch.distributed.get_rank()}")
 
     def batches():
         for batch, idx in data_loader(dataset, collator, args.train_batch_size,
@@ -423,17 +446,23 @@ def main(argv=None):
             lora_alpha=args.lora_alpha, lora_rank=args.rank,
             use_flash=args.use_flash, dtype=batch_dtype)
 
+    if mesh is not None and args.mesh_seq > 1 and not btcfg.seq_axis:
+        btcfg = dataclasses.replace(btcfg, seq_axis="seq")
     state = train(transformer, branch, vae, sched, batches(), trcfg, btcfg,
-                  validation_fn=validation_fn, initial_trainable=trainable)
+                  validation_fn=validation_fn, initial_trainable=trainable, mesh=mesh)
 
-    # final export in reference-compatible format
+    # final export in reference-compatible format (the branch gathered whole)
     from .checkpoint import export_branch_pretrained, export_lora_weights
+    from .trainer import full_state_dict
 
     if args.mode == "branch":
-        export_branch_pretrained(branch, bcfg.to_dict(), os.path.join(args.output_dir, "export"))
-    else:
+        sd = full_state_dict(branch) if mesh is not None else branch
+        if rank0:
+            export_branch_pretrained(sd, bcfg.to_dict(), os.path.join(args.output_dir, "export"))
+    elif rank0:
         export_lora_weights(state.trainable, os.path.join(args.output_dir, "export"))
-    print(f"exported final weights to {args.output_dir}/export")
+    if rank0:
+        print(f"exported final weights to {args.output_dir}/export")
     return state
 
 

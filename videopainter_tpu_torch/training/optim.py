@@ -17,6 +17,19 @@ packages take the same steps from the same gradients:
 
 `adafactor` and `prodigy` are written to `optax.adafactor` and
 `optax.contrib.prodigy` (no PyTorch optimizer steps as they do).
+
+ZeRO-2 (`Zero`, the counterpart of the JAX package's `opt_state_specs`):
+over a `data` group of n ranks, the optimizer state of a stacked block leaf
+(the tensors `transformer_blocks.<i>.<rest>` of all layers i that
+`parallel/sharding.py` places, when n divides the layer count) is split by
+layer: rank r holds and updates the layers [r L / n, (r + 1) L / n), and
+after the step every rank's updated layers are all-gathered, so the
+parameters stay equal on every rank. Gradients arrive averaged. Every
+statistic that optax takes over a whole leaf or over all parameters (the
+global-norm clip, Adafactor's update-clip and parameter-scale rms, Prodigy's
+sums) is then a sum all-reduced over the group (`Zero.total`).
+`Zero.gather_state` / `scatter_state` turn the state into the single-card
+layout and back, so a checkpoint does not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -76,9 +89,146 @@ def make_lr_schedule(name: str, base_lr: float, *, warmup_steps: int = 0,
     return schedule
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all leaves, in fp32 (optax.global_norm)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: List[torch.Tensor], zero: Optional["Zero"] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over all leaves, in fp32 (optax.global_norm);
+    under ZeRO-2 over the leaves of every rank."""
+    if zero is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    return torch.sqrt(zero.total([g.float().square().sum() for g in grads]))
+
+
+def dist_size(group) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+# Adafactor's layout fields: which tensors form a block, in what shape, how
+# it factors. They describe the state's own lists, so a ZeRO-2 state's are
+# its rank's; the one-card layout leaves them out and takes them from `init`.
+LAYOUT_KEYS = ("blocks", "shapes", "dims")
+
+_LAYER = re.compile(r"^(\w+)\.(\d+)\.")
+
+
+class Zero:
+    """ZeRO-2 layout of a parameter list over a `data` group of n ranks
+    (module note), and the cross-rank sums of the optimizer's statistics.
+    `names`: the parameters' state-dict names; `shardable(name)`: whether a
+    name is a placed block parameter (`parallel.sharding`). With n = 1 no
+    state is split. `tp_group` / `tp_sharded(name)`: under tensor
+    parallelism, the `model` group and the parameters that hold only this
+    rank's rows or columns; their statistics also sum over that group."""
+
+    def __init__(self, names: List[str], shapes: List[torch.Size], group, n: int, rank: int,
+                 shardable: Callable[[str], bool], tp_group=None,
+                 tp_sharded: Optional[Callable[[str], bool]] = None):
+        self.group, self.n, self.rank = group, n, rank
+        self.tp_group = tp_group
+        self.full_names = list(names)
+        groups: Dict[str, List[int]] = {}
+        for i, name in enumerate(names):
+            groups.setdefault(_LAYER.sub(r"\1.*.", name, count=1), []).append(i)
+        self.owner = [None] * len(names)
+        self.stacks: List[List[int]] = []   # sharded leaves: full indices in layer order
+        for members in groups.values():
+            m0 = names[members[0]]
+            if (n == 1 or len(members) < 2 or _LAYER.match(m0) is None or not shardable(m0)
+                    or len(members) % n or len({tuple(shapes[i]) for i in members}) > 1):
+                continue
+            members = sorted(members, key=lambda i: int(_LAYER.match(names[i]).group(2)))
+            per = len(members) // n
+            for pos, i in enumerate(members):
+                self.owner[i] = pos // per
+            self.stacks.append(members)
+        self.local = [i for i, o in enumerate(self.owner) if o in (None, rank)]
+        self.sharded = [self.owner[i] is not None for i in self.local]
+        self.tp = [tp_group is not None and tp_sharded is not None and tp_sharded(names[i])
+                   for i in self.local]
+        self.stack_len = {i: len(st) for st in self.stacks for i in st}
+
+    def local_names(self) -> List[str]:
+        return [self.full_names[i] for i in self.local]
+
+    def take(self, full: List) -> List:
+        """This rank's entries of a full per-parameter list."""
+        return [full[i] for i in self.local]
+
+    def total(self, values: List[torch.Tensor]) -> torch.Tensor:
+        """The sum over every rank's parameters of a per-parameter statistic
+        given for the local ones: each term summed over the groups its
+        parameter is split across, replicated terms counted once."""
+        out = values[0].new_zeros(())
+        for zs in (False, True):
+            for ts in (False, True):
+                part = [v for v, z, t in zip(values, self.sharded, self.tp) if (z, t) == (zs, ts)]
+                if part:
+                    out = out + self.sum_split(sum(part), zs, ts)
+        return out
+
+    def sum_split(self, value: torch.Tensor, zero_sharded: bool, tp_sharded: bool):
+        """A partial sum over this rank's part, summed over the groups the
+        part is split across."""
+        from ..parallel.comm import all_reduce_
+        if zero_sharded:
+            value = all_reduce_(value.clone(), self.group)
+        if tp_sharded:
+            value = all_reduce_(value.clone(), self.tp_group)
+        return value
+
+    def split_count(self, zero_sharded: bool, tp_sharded: bool) -> int:
+        return (self.n if zero_sharded else 1) * \
+            (dist_size(self.tp_group) if tp_sharded else 1)
+
+    def _gather_stack(self, stack: List[int], tensors: Dict[int, torch.Tensor]):
+        """{full index: tensor} of every layer of a sharded leaf, from this
+        rank's layers (all-gather; layers of equal shape)."""
+        from ..parallel.comm import all_gather
+        mine = [i for i in stack if self.owner[i] == self.rank]
+        buf = torch.stack([tensors[i] for i in mine])
+        full = all_gather(buf, 0, self.group)
+        return dict(zip(stack, full.unbind(0)))
+
+    @torch.no_grad()
+    def sync_params(self, params_full: List[torch.Tensor]) -> None:
+        """Copy every rank's updated layers into the others' parameters."""
+        for stack in self.stacks:
+            got = self._gather_stack(stack, {i: params_full[i].detach() for i in stack})
+            for i in stack:
+                if self.owner[i] != self.rank:
+                    params_full[i].copy_(got[i])
+
+    def gather_state(self, state: Dict) -> Dict:
+        """The state in the single-card layout (a collective: every rank calls
+        it). Per-parameter lists become full lists; the rest is kept."""
+        out = {}
+        pos = {i: j for j, i in enumerate(self.local)}
+        for key, value in state.items():
+            if not (isinstance(value, list) and len(value) == len(self.local)
+                    and all(torch.is_tensor(v) for v in value)):
+                out[key] = value
+                continue
+            full = [value[pos[i]] if i in pos else None for i in range(len(self.full_names))]
+            for stack in self.stacks:
+                got = self._gather_stack(stack, {i: full[i] for i in stack if i in pos})
+                for i in stack:
+                    full[i] = got[i]
+            out[key] = full
+        for key in LAYOUT_KEYS:
+            out.pop(key, None)
+        return out
+
+    def scatter_state(self, full_state: Dict, template: Dict) -> Dict:
+        """This rank's state from a single-card-layout one; `template` (from
+        `init`) gives the per-parameter keys and the layout fields."""
+        out = dict(template)
+        for key, value in full_state.items():
+            if key in template and isinstance(template[key], list) \
+                    and len(template[key]) == len(self.local) and isinstance(value, list) \
+                    and len(value) == len(self.full_names):
+                out[key] = [v.to(t.device) for v, t in zip(self.take(value), template[key])]
+            elif key not in LAYOUT_KEYS:
+                out[key] = value
+        return out
 
 
 class _Adam:
@@ -88,11 +238,11 @@ class _Adam:
     def __init__(self, betas, eps, weight_decay):
         (self.b1, self.b2), self.eps, self.weight_decay = betas, eps, weight_decay
 
-    def init(self, params, names=None):
+    def init(self, params, names=None, zero=None):
         return {"mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
-    def step_(self, params, grads, state, count, lr):
+    def step_(self, params, grads, state, count, lr, zero=None):
         c1, c2 = 1.0 - self.b1 ** (count + 1), 1.0 - self.b2 ** (count + 1)
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
@@ -137,7 +287,10 @@ class _Adafactor:
     rate and by the parameter's rms (at least 1e-3), no momentum, weight decay
     added last. A block is one leaf of the JAX package's tree (`_leaf_blocks`):
     the rms of the clip and of the parameter scale run over a leaf stacked
-    across layers, so both packages take the same step on the same model."""
+    across layers, so both packages take the same step on the same model.
+    The moments are kept per tensor (each a row of its block's), so ZeRO-2
+    can split a block by layer; under ZeRO-2 the factoring is chosen on the
+    whole stacked leaf and the block rms are sums over every rank's layers."""
 
     def __init__(self, weight_decay):
         self.weight_decay = weight_decay
@@ -146,37 +299,66 @@ class _Adafactor:
     def _stack(tensors, state, block):
         return torch.stack([tensors[i].reshape(state["shapes"][i]) for i in block])
 
-    def init(self, params, names=None):
+    def init(self, params, names=None, zero=None):
         blocks, shapes = _leaf_blocks(params, names)
-        state = {"blocks": blocks, "shapes": shapes, "v_row": [], "v_col": [], "v": []}
+        n = len(params)
+        state = {"blocks": blocks, "shapes": shapes, "dims": [],
+                 "v_row": [None] * n, "v_col": [None] * n, "v": [None] * n}
         for block in blocks:
-            p = self._stack(params, state, block)
-            dims = _factored_dims(p.shape)
-            shape = list(p.shape)
-            drop = lambda d: shape[:d] + shape[d + 1:]
-            state["v_row"].append(p.new_zeros(drop(dims[1]) if dims else (1,)))
-            state["v_col"].append(p.new_zeros(drop(dims[0]) if dims else (1,)))
-            state["v"].append(p.new_zeros((1,)) if dims else torch.zeros_like(p))
+            stacked = [len(block)] + list(shapes[block[0]])
+            if zero is not None and zero.sharded[block[0]]:
+                stacked[0] = zero.stack_len[zero.local[block[0]]]
+            dims = _factored_dims(stacked)
+            if dims is not None and 0 in dims:
+                raise ValueError(f"a stacked leaf of shape {stacked} factors over its layer "
+                                 "axis: not supported")
+            state["dims"].append(dims)
+            for i in block:
+                p = params[i].reshape(shapes[i])
+                row = list(p.shape)
+                drop = lambda d: row[:d - 1] + row[d:]
+                one = p.new_zeros((1,))
+                state["v_row"][i] = p.new_zeros(drop(dims[1])) if dims else one
+                state["v_col"][i] = p.new_zeros(drop(dims[0])) if dims else one.clone()
+                state["v"][i] = one.clone() if dims else torch.zeros_like(p)
         return state
 
-    def step_(self, params, grads, state, count, lr):
+    def step_(self, params, grads, state, count, lr, zero=None):
         decay = 1.0 - float(count + 1) ** -0.8
-        for i, block in enumerate(state["blocks"]):
+
+        def rms(x, split):
+            """The rms of a block, over every rank's part of it."""
+            if not any(split):
+                return x.square().mean().sqrt()
+            return (zero.sum_split(x.square().sum(), *split)
+                    / (x.numel() * zero.split_count(*split))).sqrt()
+
+        for b, block in enumerate(state["blocks"]):
             p, g = self._stack(params, state, block), self._stack(grads, state, block)
-            dims = _factored_dims(p.shape)
+            split = (False, False) if zero is None else (zero.sharded[block[0]],
+                                                         zero.tp[block[0]])
+            dims = state["dims"][b]
             g_sq = g * g + 1e-30
             if dims is not None:
                 d1, d0 = dims
-                v_row = state["v_row"][i].mul_(decay).add_(g_sq.mean(dim=d0), alpha=1 - decay)
-                v_col = state["v_col"][i].mul_(decay).add_(g_sq.mean(dim=d1), alpha=1 - decay)
+                v_row = torch.stack([state["v_row"][i] for i in block])
+                v_col = torch.stack([state["v_col"][i] for i in block])
+                v_row.mul_(decay).add_(g_sq.mean(dim=d0), alpha=1 - decay)
+                v_col.mul_(decay).add_(g_sq.mean(dim=d1), alpha=1 - decay)
+                for t, i in enumerate(block):
+                    state["v_row"][i].copy_(v_row[t])
+                    state["v_col"][i].copy_(v_col[t])
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
                 update = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
             else:
-                v = state["v"][i].mul_(decay).add_(g_sq, alpha=1 - decay)
+                v = torch.stack([state["v"][i] for i in block])
+                v.mul_(decay).add_(g_sq, alpha=1 - decay)
+                for t, i in enumerate(block):
+                    state["v"][i].copy_(v[t])
                 update = g * v ** -0.5
-            update = update / torch.clamp(update.square().mean().sqrt(), min=1.0)
-            update = update * lr * torch.clamp(p.square().mean().sqrt(), min=1e-3)
+            update = update / torch.clamp(rms(update, split), min=1.0)
+            update = update * lr * torch.clamp(rms(p, split), min=1e-3)
             if self.weight_decay:
                 update = update + self.weight_decay * p
             for j, u in zip(block, update):
@@ -196,7 +378,7 @@ class _Prodigy:
         self.b3 = self.b2 ** 0.5 if beta3 is None else beta3
         self.eps, self.weight_decay, self.safeguard_warmup = eps, weight_decay, safeguard_warmup
 
-    def init(self, params, names=None):
+    def init(self, params, names=None, zero=None):
         zeros = lambda: [torch.zeros_like(p) for p in params]
         ref = params[0]
         return {"exp_avg": zeros(), "exp_avg_sq": zeros(), "grad_sum": zeros(),
@@ -204,12 +386,12 @@ class _Prodigy:
                 "estim_lr": torch.tensor(self.D0, dtype=ref.dtype, device=ref.device),
                 "numerator_weighted": torch.zeros((), dtype=ref.dtype, device=ref.device)}
 
-    def step_(self, params, grads, state, count, lr):
+    def step_(self, params, grads, state, count, lr, zero=None):
         d = state["estim_lr"]
         bc = (1 - self.b2 ** (count + 1)) ** 0.5 / (1 - self.b1 ** (count + 1))
         dlr = d * lr * bc
-        numerator = sum(torch.sum(g * (p0 - p)) for g, p0, p in
-                        zip(grads, state["params0"], params))
+        terms = [torch.sum(g * (p0 - p)) for g, p0, p in zip(grads, state["params0"], params)]
+        numerator = sum(terms) if zero is None else zero.total(terms)
         s_coef = d if self.safeguard_warmup else dlr
         for g, ea, eas, gs in zip(grads, state["exp_avg"], state["exp_avg_sq"],
                                   state["grad_sum"]):
@@ -219,7 +401,8 @@ class _Prodigy:
             gs.mul_(self.b3).add_(s_coef * dg / self.D0)
         state["numerator_weighted"] = (self.b3 * state["numerator_weighted"]
                                        + (d / self.D0) * dlr * numerator)
-        denominator = sum(gs.abs().sum() for gs in state["grad_sum"])
+        terms = [gs.abs().sum() for gs in state["grad_sum"]]
+        denominator = sum(terms) if zero is None else zero.total(terms)
         state["estim_lr"] = torch.maximum(
             d, self.D_COEF * state["numerator_weighted"] / denominator)
         for p, ea, eas in zip(params, state["exp_avg"], state["exp_avg_sq"]):
@@ -240,15 +423,25 @@ class Optimizer:
         self.lr = lr if callable(lr) else (lambda step, _lr=float(lr): _lr)
         self.max_grad_norm = max_grad_norm
         self.accumulate_steps = int(accumulate_steps)
+        self.zero: Optional[Zero] = None
 
-    def init(self, params: List[torch.Tensor], names: Optional[List[str]] = None) -> Dict:
-        state = {"count": 0, **self.rule.init(params, names)}
+    def init(self, params: List[torch.Tensor], names: Optional[List[str]] = None,
+             zero: Optional[Zero] = None) -> Dict:
+        """`zero`: the ZeRO-2 layout of `params` (then the state holds this
+        rank's part, and `update_` takes and updates the full lists)."""
+        self.zero = zero
+        if zero is not None:
+            params, names = zero.take(params), zero.local_names()
+        state = {"count": 0, **self.rule.init(params, names, zero)}
         if self.accumulate_steps > 1:
             state.update(mini_step=0, acc=[torch.zeros_like(p) for p in params])
         return state
 
     @torch.no_grad()
     def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: Dict) -> Dict:
+        zero, full = self.zero, params
+        if zero is not None:
+            params, grads = zero.take(params), zero.take(grads)
         if self.accumulate_steps > 1:
             # running mean of the micro-gradients; the chain runs on the k-th
             k = state["mini_step"]
@@ -263,10 +456,14 @@ class Optimizer:
         else:
             grads = [g.to(p.dtype) for g, p in zip(grads, params)]
         if self.max_grad_norm is not None:
-            factor = self.max_grad_norm / torch.clamp(global_norm(grads), min=self.max_grad_norm)
+            factor = self.max_grad_norm / torch.clamp(global_norm(grads, zero),
+                                                      min=self.max_grad_norm)
             grads = [g * factor.to(g.dtype) for g in grads]
-        self.rule.step_(params, grads, state, state["count"], float(self.lr(state["count"])))
+        self.rule.step_(params, grads, state, state["count"], float(self.lr(state["count"])),
+                        zero)
         state["count"] += 1
+        if zero is not None:
+            zero.sync_params(full)
         return state
 
 
