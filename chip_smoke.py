@@ -120,7 +120,17 @@ Phases (each fails the run loudly, exit code != 0):
     parameters bit-equal on both ranks after each step) and one under seq=2
     with the ring (B2 / B3 per ring block); every rank's launches held to
     the code's counts; (c) `train(mesh=make_mesh(1, 1, 1))` on a one-rank
-    NCCL group, one step bit-equal to the meshless step.
+    NCCL group, one step bit-equal to the meshless step;
+14. the gate tools (`videopainter_tpu_torch.tools`: gate_int8_flagship,
+    gate_skip_flagship, smoke_chip_anyl) at full width, steps cut, on one
+    seeded 42-layer model with the learnable ID resample: the int8 gate's
+    trajectories (3 steps: bf16, dynamic int8 calibrating static scales,
+    static int8) and capture legs, the skip gate's real denoise loop (6
+    steps: bf16 reference, int8 with those scales, schedule 2:6:2) with its
+    pixel and perceptual legs, the any-length tool's skip-against-full run
+    (73 frames, 2 windows x 3 steps, step 1 skipped); strict JSON, finite,
+    B1 / B4 launches as predicted, int8 latent PSNR >= 35 dB, the capture
+    consumption control above 0.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -3130,6 +3140,117 @@ def phase_nccl_world1(torch, kernels):
     return meshed["launches"]
 
 
+# ---------------------------------------------------------------------------------------------
+# phase 14: the quality-gate tools at full width, steps cut
+
+GATE_STEPS = 3           # the int8 gate's trajectories (50 in --deep)
+GATE_SKIP_STEPS = 6      # the skip gate's loop (50 in use)
+GATE_SKIP_SCHEDULE = "2:6:2"   # skips steps 3 and 5 of 6
+GATE_ANYL = dict(frames=73, stride=24, steps=3, skip="1")   # 2 windows; at 2 steps a
+                         # window has nothing to skip (step 0 and the capture step always run)
+GATE_MIN_PSNR_DB = 35.0  # the int8 latent PSNR bar (the JAX package's bench.py:119)
+
+
+def phase_gates(torch, kernels):
+    """Phase 14: the functions of the three gate tools
+    (`videopainter_tpu_torch.tools`) at full width on one seeded bf16 model
+    with the learnable ID resample: the int8 gate's bf16 trajectory and the
+    skip gate's bf16 reference, then the W8A8 quantization in place, the
+    int8 gate's calibrated, static and capture legs, the skip gate's
+    serving-full and skip runs with the calibrated scales and its pixel and
+    perceptual legs, and the any-length tool's skip-against-full comparison
+    on the same quantized models. Every record must be strict JSON with
+    finite numbers; the B1 / B4 launches must equal what the steps predict;
+    the int8 latent PSNR at least GATE_MIN_PSNR_DB; the consumption control
+    above 0. Returns the launch counts."""
+    from videopainter_tpu_torch.config import SchedulerConfig
+    from videopainter_tpu_torch.flagship import build_pipeline
+    from videopainter_tpu_torch.pipelines import CogVideoXI2VDualInpaintAnyLPipeline
+    from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
+    from videopainter_tpu_torch.tools import gate_int8_flagship as g8
+    from videopainter_tpu_torch.tools import gate_skip_flagship as gs
+    from videopainter_tpu_torch.tools import gates
+    from videopainter_tpu_torch.tools import smoke_chip_anyl as ga
+
+    t0 = time.perf_counter()
+    tcfg = g8.model_config(42, smoke=False, learnable=True)
+    pipe = build_pipeline(torch.Generator(device="cuda").manual_seed(gates.WEIGHTS_SEED),
+                          tcfg=tcfg)
+    pipe.vae.enable_tiling()
+    sched = CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference())
+    perceptual = gates.Perceptual(torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"gates: {tcfg.num_layers}-layer model (learnable ID resample) and the perceptual "
+        f"extractors built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    walls = {}
+    inp = g8.gate_inputs(torch.Generator(device="cuda").manual_seed(2), tcfg,
+                         g8.FLAGSHIP_LATENT, rect_mask=True)
+    s0 = time.perf_counter()
+    ref8 = g8.bf16_reference(pipe.transformer, pipe.branch, inp, GATE_STEPS)
+    configs = [(0, "rect")]
+    refs = gs.references(pipe.transformer, pipe.branch, sched, steps=GATE_SKIP_STEPS,
+                         configs=configs, latent_dims=g8.FLAGSHIP_LATENT)
+    walls["bf16 legs"] = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    r8 = g8.run_gate(pipe.transformer, pipe.branch, pipe.vae, inp, steps=GATE_STEPS,
+                     ascale=True, capture=True, ref=ref8)
+    walls["int8 gate"] = time.perf_counter() - s0
+    scales = r8.pop("_scales")
+    s0 = time.perf_counter()
+    rs = gs.run_gate(pipe.transformer, pipe.branch, pipe.vae, sched, steps=GATE_SKIP_STEPS,
+                     schedules=[GATE_SKIP_SCHEDULE], configs=configs,
+                     latent_dims=g8.FLAGSHIP_LATENT, scales=scales, scales_tag="phase14",
+                     perceptual=perceptual, refs=refs)
+    gs.validate(rs)
+    walls["skip gate"] = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    anyl = CogVideoXI2VDualInpaintAnyLPipeline(pipe.transformer, pipe.branch, pipe.vae, sched,
+                                               device="cuda")
+    clip = ga.make_clip(GATE_ANYL["frames"], 480, 720, tcfg, device=torch.device("cuda"))
+    ra = ga.compare_full(anyl, clip, steps=GATE_ANYL["steps"], stride=GATE_ANYL["stride"],
+                         skip_spec=GATE_ANYL["skip"], mode="int8+int8attn+ascale+resample",
+                         num_frames=49, resample=True, use_flash="int8", capture_int8=True,
+                         stream_decode=False)
+    walls["any-length tool"] = time.perf_counter() - s0
+    torch.cuda.synchronize()
+    launches = gates.launches()   # raises if a yardstick ran
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = {"int8 gate": r8, "skip gate": rs, "any-length": ra}
+    for name, rec in records.items():
+        gates.finish(rec, torch.device("cuda"), argv=["chip_smoke.py phase 14"])
+        gates.check_finite(rec)
+        json.loads(json.dumps(rec, allow_nan=False))   # strict JSON both ways
+    for line in (json.dumps(r8["latent"]), json.dumps(r8["static_ascale"]),
+                 json.dumps(r8["capture_int8"]), json.dumps(rs["schedules"]),
+                 json.dumps(rs.get("perceptual_anchor")),
+                 json.dumps({k: ra[k] for k in ("pixel_psnr_skip_vs_full_db", "wall_s")})):
+        log(f"gates: {line}")
+    n = tcfg.num_layers + 2                 # B1 / B4 launches of one forward
+    skipped = len(gs.parse_skip_steps(GATE_SKIP_SCHEDULE, GATE_SKIP_STEPS))
+    a_skip = len(gs.parse_skip_steps(GATE_ANYL["skip"], GATE_ANYL["steps"]))
+    want = {"flash_fwd": 2 * n * (GATE_STEPS + GATE_SKIP_STEPS),
+            "flash_int8_fwd": n * (2 * GATE_STEPS * 2 + 5              # dynamic, static, capture
+                                   + 2 * GATE_SKIP_STEPS + 2 * (GATE_SKIP_STEPS - skipped)
+                                   + 2 * 2 * GATE_ANYL["steps"]       # 2 windows, full
+                                   + 2 * 2 * (GATE_ANYL["steps"] - a_skip))}
+    log(f"gates: launches {launches} (predicted B1 {want['flash_fwd']}, B4 "
+        f"{want['flash_int8_fwd']}); by leg: int8 gate {r8['launches_by_leg']}, skip gate "
+        f"{rs['launches_by_leg']}; wall " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; peak memory {peak:.2f} GiB")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"gate launches {launches}, predicted {want}")
+    psnr = r8["latent"]["psnr_db"]
+    if psnr is not None and psnr < GATE_MIN_PSNR_DB:
+        raise AssertionError(f"int8 latent PSNR {psnr:.2f} dB < {GATE_MIN_PSNR_DB}")
+    if not r8["capture_int8"]["consumption_control_maxdiff"] > 0:
+        raise AssertionError("the propagation leg consumed nothing of the captured state")
+    if not ra["finite"] or ra["windows"] != 2:
+        raise AssertionError(f"any-length tool: finite {ra['finite']}, windows {ra['windows']}")
+    return launches
+
+
 def np_equal(a, b):
     import numpy as np
     return a.shape == b.shape and bool(np.array_equal(a, b))
@@ -3296,6 +3417,9 @@ def main() -> int:
     check_no_yardstick(par_launches, "phase 13")
     free()
 
+    gate_launches = timed_phase("14 gate tools at full width", phase_gates, torch, kernels)
+    free()
+
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
     from videopainter_tpu_torch.tools import bench_int8_attn
@@ -3321,6 +3445,7 @@ def main() -> int:
              "launches_eval": eval_launches["flash_fwd"],
              "launches_app": demo["app"]["flash_fwd"],
              "launches_parallel": par_launches["flash_fwd"],
+             "launches_gates": gate_launches["flash_fwd"],
              "launches_ring_decomposition": sum(
                  v if isinstance(v, int) else v["flash_fwd"]
                  for v in ring13["launches"].values()), **stats},
@@ -3342,7 +3467,8 @@ def main() -> int:
             {"name": "flash_int8_fwd", "route": "cuda", "source": csrc + fa8._SOURCE,
              "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
              "launches": anyl_launches["flash_int8_fwd"],
-             "launches_parallel": par_launches["flash_int8_fwd"], **b4},
+             "launches_parallel": par_launches["flash_int8_fwd"],
+             "launches_gates": gate_launches["flash_int8_fwd"], **b4},
             {"name": "flash_int8_uniform_fwd", "route": "cuda",
              "source": csrc + fa8._UNIFORM_SOURCE,
              "replaces": "tools/bench_int8_attn.py:37",

@@ -223,6 +223,54 @@ def test_train_mesh_zero2_resume_and_adafactor(tmp_path):
                                        err_msg=f"{opt} {k}")
 
 
+def test_tp_adafactor_step_matches_one_process_and_optax():
+    """World 2, `model` 2, Adafactor (also what `--use_8bit_adam` runs): one
+    branch-SFT step on a backbone of 4 heads x 64 (inner width 256), so
+    each column-parallel weight's split axis keeps 128 rows a rank and
+    factors on both sides of the split. The factored moment's row and
+    column means over the split axis are sums over `model` divided by the
+    whole leaf's length, and the factoring is chosen on the whole leaf's
+    shape: the parameters after the step equal the one-process step's and
+    optax.adafactor's on the one-process gradient (rtol 2e-5, atol
+    PARAM_ATOL, the Adafactor limits above)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from videopainter_tpu.training.optim import make_optimizer as jmake
+    from videopainter_tpu_torch.convert.from_jax import to_jax_layout
+
+    s = Stack(num_attention_heads=4, attention_head_dim=64)
+    opt = dict(lr=1e-3, optimizer="adafactor", weight_decay=1e-4)
+    spec = s.spec(mesh=(1, 1, 2), batch=make_batch(1), steps=1, optimizer=opt,
+                  bcfg=dict(height=64, width=96, mask_add=True, remat=False),
+                  return_params=True)
+    res = run_local(2, workers.train_rank, spec, timeout=240)
+    one = workers.train_rank(dict(spec, mesh=None))
+    names = sorted(one["params"])
+    sizes = [one["params"][k].size for k in names]
+    flat = np.split(one["grad"], np.cumsum(sizes)[:-1])
+    grads = {k: torch.from_numpy(g.reshape(one["params"][k].shape)) for k, g in zip(names, flat)}
+    jgrads = jax.tree.map(jnp.asarray, to_jax_layout(grads, s.bp))
+    params0 = jax.tree.map(jnp.asarray, s.bp)
+    tx = jmake(**opt)
+    updates, _ = tx.update(jgrads, tx.init(params0), params0)
+    want = jax.tree.map(np.asarray, optax.apply_updates(params0, updates))
+    flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    factored = [k for k in names if "transformer_blocks" in k and k.endswith("to_q.weight")]
+    assert factored and all(min(one["params"][k].shape) >= 256 for k in factored)
+    for r in res:
+        assert r["comm"]["all_reduce"]["calls"] > 0
+        for k in names:
+            np.testing.assert_allclose(r["params"][k], one["params"][k], rtol=2e-5,
+                                       atol=PARAM_ATOL, err_msg=k)
+        got = to_jax_layout({k: torch.from_numpy(v) for k, v in r["params"].items()}, s.bp)
+        for path, a in jax.tree_util.tree_flatten_with_path(got)[0]:
+            np.testing.assert_allclose(a, flat_want[path], rtol=2e-5, atol=PARAM_ATOL,
+                                       err_msg=jax.tree_util.keystr(path))
+
+
 def _cli_files(root, s):
     """Tiny exported checkpoints of the stack, a two-row dataset of one clip
     and prompt embeddings."""

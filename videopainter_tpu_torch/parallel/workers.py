@@ -187,16 +187,21 @@ def _scheduler(spec):
 def pipeline_rank(spec: Dict) -> Dict:
     """The dual-stream pipeline on this rank (`spec["pipeline"]`: "single",
     the default, or "anyl", the any-length one): the backbone and branch
-    tensor-parallel over the mesh's `model` axis, `spec["seq"]` ("seq" for
+    tensor-parallel over the mesh's `model` axis
+    (`inference.shard_inference_params`), `spec["seq"]` ("seq" for
     sequence parallelism, "ring" for ring attention, None), `spec["call"]`
     the pipeline's keyword arguments (numpy arrays, or lists of them; a
     `generator_seed` becomes the generator). Returns {"out": the whole
-    result, "comm", "launches", ...}."""
+    result, "local_heads": the backbone's heads on this rank, "comm",
+    "launches", ...}."""
     from ..pipelines import CogVideoXI2VDualInpaintAnyLPipeline, CogVideoXI2VDualInpaintPipeline
+
+    from .inference import shard_inference_params
 
     device, mesh = setup(spec)
     transformer, branch, vae = build_models(spec, device)
-    _shard(mesh, transformer, branch)
+    if mesh is not None:   # as a user shards a pipeline: the VAE stays whole
+        shard_inference_params({"transformer": transformer, "branch": branch, "vae": vae}, mesh)
     cls = (CogVideoXI2VDualInpaintAnyLPipeline if spec.get("pipeline") == "anyl"
            else CogVideoXI2VDualInpaintPipeline)
     pipe = cls(transformer, branch, vae, _scheduler(spec), device=device)
@@ -229,7 +234,8 @@ def pipeline_rank(spec: Dict) -> Dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     out = out if isinstance(out, np.ndarray) else _np(out)
-    return _report({"out": out}, mesh)
+    return _report({"out": out, "local_heads": transformer.transformer_blocks[0].attn1.num_heads},
+                   mesh)
 
 
 def dit_rank(spec: Dict) -> Dict:

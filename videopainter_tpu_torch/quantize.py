@@ -125,11 +125,29 @@ def calibrate_ascales(model: nn.Module, samples: Iterable, *, margin: float = 1.
         acc = a if acc is None else np.maximum(acc, a)
     if acc is None:
         raise ValueError("calibrate_ascales needs at least one sample")
+    return ascales_from_amax(model, acc, margin=margin)
+
+
+def ascales_from_amax(model: nn.Module, amax, *, margin: float = 1.0
+                      ) -> Dict[str, np.ndarray]:
+    """{site: [L] float32} from recorded amaxes [L, n_sites] (the models'
+    calibrate=True tap, its maximum over any number of forwards):
+    amax * margin / 127, sites in `ascale_site_order`."""
+    acc = np.asarray(amax, np.float32)
     sites = ascale_site_order(model)
     if acc.shape[1] != len(sites):
         raise ValueError(f"recorded {acc.shape[1]} sites per layer but the model has "
                          f"{len(sites)} quantized linears ({sites})")
     return {name: acc[:, i] * (float(margin) / 127.0) for i, name in enumerate(sites)}
+
+
+def clear_static_ascale(model: nn.Module) -> nn.Module:
+    """Drop the static activation scales of `model`'s int8 linears (in place;
+    returns it): they quantize per token again."""
+    for m in model.modules():
+        if isinstance(m, Int8Linear):
+            m.ascale = None
+    return model
 
 
 def save_ascales(path: str, scales_by_model: dict, provenance: Optional[dict] = None) -> None:

@@ -105,7 +105,7 @@ def dist_size(group) -> int:
 # Adafactor's layout fields: which tensors form a block, in what shape, how
 # it factors. They describe the state's own lists, so a ZeRO-2 state's are
 # its rank's; the one-card layout leaves them out and takes them from `init`.
-LAYOUT_KEYS = ("blocks", "shapes", "dims")
+LAYOUT_KEYS = ("blocks", "shapes", "dims", "tp_axes")
 
 _LAYER = re.compile(r"^(\w+)\.(\d+)\.")
 
@@ -115,13 +115,14 @@ class Zero:
     (module note), and the cross-rank sums of the optimizer's statistics.
     `names`: the parameters' state-dict names; `shardable(name)`: whether a
     name is a placed block parameter (`parallel.sharding`). With n = 1 no
-    state is split. `tp_group` / `tp_sharded(name)`: under tensor
-    parallelism, the `model` group and the parameters that hold only this
-    rank's rows or columns; their statistics also sum over that group."""
+    state is split. `tp_group` / `tp_dim(name)`: under tensor
+    parallelism, the `model` group and, for a parameter that holds only
+    this rank's rows or columns, the axis they are cut along (None for a
+    whole one); their statistics also sum over that group."""
 
     def __init__(self, names: List[str], shapes: List[torch.Size], group, n: int, rank: int,
                  shardable: Callable[[str], bool], tp_group=None,
-                 tp_sharded: Optional[Callable[[str], bool]] = None):
+                 tp_dim: Optional[Callable[[str], Optional[int]]] = None):
         self.group, self.n, self.rank = group, n, rank
         self.tp_group = tp_group
         self.full_names = list(names)
@@ -142,8 +143,10 @@ class Zero:
             self.stacks.append(members)
         self.local = [i for i, o in enumerate(self.owner) if o in (None, rank)]
         self.sharded = [self.owner[i] is not None for i in self.local]
-        self.tp = [tp_group is not None and tp_sharded is not None and tp_sharded(names[i])
-                   for i in self.local]
+        self.tp_dims = [tp_dim(names[i]) if tp_group is not None and tp_dim is not None
+                        else None for i in self.local]
+        self.tp = [d is not None for d in self.tp_dims]
+        self.tp_size = dist_size(tp_group) if tp_group is not None else 1
         self.stack_len = {i: len(st) for st in self.stacks for i in st}
 
     def local_names(self) -> List[str]:
@@ -289,8 +292,12 @@ class _Adafactor:
     the rms of the clip and of the parameter scale run over a leaf stacked
     across layers, so both packages take the same step on the same model.
     The moments are kept per tensor (each a row of its block's), so ZeRO-2
-    can split a block by layer; under ZeRO-2 the factoring is chosen on the
-    whole stacked leaf and the block rms are sums over every rank's layers."""
+    can split a block by layer; under ZeRO-2 and tensor parallelism the
+    factoring is chosen on the whole stacked leaf, and every statistic that
+    optax takes over the leaf (the block rms, and the row and column means
+    of the factored moment along the axis a tensor-parallel leaf is cut
+    along) is a sum over every rank's part divided by the whole leaf's
+    size."""
 
     def __init__(self, weight_decay):
         self.weight_decay = weight_decay
@@ -302,12 +309,17 @@ class _Adafactor:
     def init(self, params, names=None, zero=None):
         blocks, shapes = _leaf_blocks(params, names)
         n = len(params)
-        state = {"blocks": blocks, "shapes": shapes, "dims": [],
+        state = {"blocks": blocks, "shapes": shapes, "dims": [], "tp_axes": [],
                  "v_row": [None] * n, "v_col": [None] * n, "v": [None] * n}
         for block in blocks:
             stacked = [len(block)] + list(shapes[block[0]])
+            tp_axis = None   # the stacked leaf's axis this rank holds a part of
             if zero is not None and zero.sharded[block[0]]:
                 stacked[0] = zero.stack_len[zero.local[block[0]]]
+            if zero is not None and zero.tp[block[0]]:
+                tp_axis = 1 + zero.tp_dims[block[0]]
+                stacked[tp_axis] *= zero.tp_size
+            state["tp_axes"].append(tp_axis)
             dims = _factored_dims(stacked)
             if dims is not None and 0 in dims:
                 raise ValueError(f"a stacked leaf of shape {stacked} factors over its layer "
@@ -337,19 +349,30 @@ class _Adafactor:
             p, g = self._stack(params, state, block), self._stack(grads, state, block)
             split = (False, False) if zero is None else (zero.sharded[block[0]],
                                                          zero.tp[block[0]])
-            dims = state["dims"][b]
+            dims, tp_axis = state["dims"][b], state["tp_axes"][b]
+
+            def mean(x, dim, split_axis, keepdim=False):
+                """The mean over `dim` of the whole leaf: over a tensor-parallel
+                axis, this rank's sum summed over `model`."""
+                if dim != split_axis:
+                    return x.mean(dim=dim, keepdim=keepdim)
+                return (zero.sum_split(x.sum(dim=dim, keepdim=keepdim), False, True)
+                        / (x.shape[dim] * zero.tp_size))
+
             g_sq = g * g + 1e-30
             if dims is not None:
                 d1, d0 = dims
                 v_row = torch.stack([state["v_row"][i] for i in block])
                 v_col = torch.stack([state["v_col"][i] for i in block])
-                v_row.mul_(decay).add_(g_sq.mean(dim=d0), alpha=1 - decay)
-                v_col.mul_(decay).add_(g_sq.mean(dim=d1), alpha=1 - decay)
+                v_row.mul_(decay).add_(mean(g_sq, d0, tp_axis), alpha=1 - decay)
+                v_col.mul_(decay).add_(mean(g_sq, d1, tp_axis), alpha=1 - decay)
                 for t, i in enumerate(block):
                     state["v_row"][i].copy_(v_row[t])
                     state["v_col"][i].copy_(v_col[t])
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                # v_row lacks axis d0: the split axis moves down past it
+                row_split = None if tp_axis in (None, d0) else tp_axis - (tp_axis > d0)
+                row_factor = (v_row / mean(v_row, reduced_d1, row_split, keepdim=True)) ** -0.5
                 update = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
             else:
                 v = torch.stack([state["v"][i] for i in block])

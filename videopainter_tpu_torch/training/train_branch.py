@@ -94,17 +94,20 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def make_zero(names: List[str], params: List[torch.Tensor], mesh) -> Optional[Zero]:
     """The ZeRO-2 / tensor-parallel layout of a branch's parameters on a mesh
     (None without one, or on a mesh of one rank in `data` and `model`)."""
-    from ..parallel.sharding import optimizer_state_specs, param_spec
+    from ..parallel.sharding import optimizer_state_specs, param_spec, placement
 
     n_data, n_model = axis_size(mesh, AXES.data), axis_size(mesh, AXES.model)
     if mesh is None or (n_data == 1 and n_model == 1):
         return None
     zero_spec = lambda name: optimizer_state_specs({name: param_spec(name)})[name]
-    split = {name: getattr(p, "tp_split", False) for name, p in zip(names, params)}
+    # a tensor-parallel part holds rows of a column-parallel linear's weight,
+    # bias and scales, columns of a row-parallel one's weight
+    split = {name: (0 if placement(name) == "col" else 1)
+             if getattr(p, "tp_split", False) else None for name, p in zip(names, params)}
     return Zero(names, [p.shape for p in params], mesh.get_group(AXES.data), n_data,
                 axis_rank(mesh, AXES.data), lambda name: zero_spec(name)[:1] == (AXES.data,),
                 tp_group=mesh.get_group(AXES.model) if n_model > 1 else None,
-                tp_sharded=split.__getitem__)
+                tp_dim=split.__getitem__)
 
 
 def init_branch_train_state(trainable, optimizer, mesh=None) -> BranchTrainState:
