@@ -56,8 +56,10 @@ Phases (each fails the run loudly, exit code != 0):
  5. training at the same full width: two optimizer steps of branch SFT (42-
     layer frozen backbone, 2-layer float32 branch, batch 1, 49x480x720,
     per-block checkpointing, AdamW) through the flash forward and backward
-    kernels; counts zeroed before and read after, and held to what the code
-    predicts; finite losses, moved parameters, no gradient on frozen weights;
+    kernels, driven by the training tool's `measure`
+    (`videopainter_tpu_torch.tools.smoke_chip_train`); counts zeroed before
+    and read after, and held to what the code predicts; finite losses, moved
+    parameters, no gradient on frozen weights;
  6. one ID-LoRA step at full width on a backbone cut to 4 layers (rank 256,
     ID resampling: 35,552 keys in forward and backward);
  7. a small training step on the card, the kernels against exact attention;
@@ -130,7 +132,16 @@ Phases (each fails the run loudly, exit code != 0):
     pixel and perceptual legs, the any-length tool's skip-against-full run
     (73 frames, 2 windows x 3 steps, step 1 skipped); strict JSON, finite,
     B1 / B4 launches as predicted, int8 latent PSNR >= 35 dB, the capture
-    consumption control above 0.
+    consumption control above 0;
+15. the measurement tools (`videopainter_tpu_torch.tools`: bench,
+    smoke_chip_train, sweep_int8_blocks, bench_vae_decode) at full width:
+    the bench's gated-headline rule on the committed `_cuda` gate artifacts
+    (int8_ascale_skip_42L with 4:48:5) and its renamed-schedule control (the
+    skip rung dropped), the bench's step at 42 layers in the gated serving
+    mode (W8A8, int8 attention, calibrated static scales, 4:48:5, the tiled
+    VAE decode) and in bf16 (batched CFG, 4 steps each, launches held
+    exactly), the training tool at 42 layers (phase 5), the int8 block sweep
+    on two block pairs in both modes and the decode sweep on two combos.
 
 Prints a `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Exits non-zero without a result when CUDA
@@ -2579,42 +2590,33 @@ def phase_train(torch, kernels):
     width (42-layer frozen bf16 backbone, 2-layer float32 branch initialised
     from it, default VAE, batch 1, 49x480x720, 226-token embeddings, mask_add,
     per-block checkpointing, AdamW) with the flash forward and backward
-    kernels. Returns the launch counts of the two steps."""
-    from videopainter_tpu_torch.flagship import build_training
-    from videopainter_tpu_torch.training import (BranchTrainConfig, init_branch_train_state,
-                                                 make_branch_train_step)
+    kernels, through the training tool's `measure`
+    (`videopainter_tpu_torch.tools.smoke_chip_train`: its first step and one
+    timed step). Returns the launch counts of the two steps."""
+    from videopainter_tpu_torch.tools import smoke_chip_train as sct
 
     gen = torch.Generator(device="cuda").manual_seed(99)
     t0 = time.perf_counter()
-    t = build_training(gen)   # AdamW at the reference's 1e-5
+    args = sct.parse_args(["--layers", "42", "--steps", "1"])   # AdamW at the reference's 1e-5
+    t = sct.build(args, gen, torch.device("cuda"))
     transformer, branch, vae = t["transformer"], t["branch"], t["vae"]
-    cfg = BranchTrainConfig(mask_add=True, use_flash=True, remat=True)
-    state = init_branch_train_state(t["trainable"], t["optimizer"])
-    step = make_branch_train_step(transformer, branch, vae, t["scheduler"], t["optimizer"], cfg)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     n_layers, n_branch = transformer.cfg.num_layers, branch.cfg.num_layers
     n_train = sum(p.numel() for p in branch.parameters())
     log(f"training, full width: {n_layers}-layer bf16 backbone (frozen), {n_branch}-layer "
         f"branch with {n_train / 1e9:.3f} B float32 parameters (trainable), AdamW, per-block "
-        f"checkpoints; built in {time.perf_counter() - t0:.1f} s, "
+        f"checkpoints; built in {init_s:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
     before = {n: p.detach().clone() for n, p in branch.named_parameters()}
     enc_s = []
     vae.encode = timed_calls(torch, vae.encode, enc_s)
 
-    n_steps = 2
-    torch.cuda.reset_peak_memory_stats()
+    n_steps = args.steps + 1
     kernels.reset_launches()
-    walls, metrics = [], []
-    for _ in range(n_steps):
-        torch.cuda.synchronize()
-        s0 = time.perf_counter()
-        state, m = step(state, t["batch"], gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - s0)
-        metrics.append({k: float(v) for k, v in m.items()})
+    rec, state, metrics = sct.measure(t, args, argv=["chip_smoke.py phase 5"], init_s=init_s)
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    walls = [rec["first_step_s"]] + rec["step_walls_s"]
 
     # every block runs its forward once; every block that a trainable parameter
     # reaches is recomputed once and has one backward. The backbone's block 0
@@ -2629,7 +2631,7 @@ def phase_train(torch, kernels):
         log(f"training step {i + 1}: {w:.3f} s wall (VAE encodes {enc:.3f} s of it, "
             f"{enc_per_step} calls), " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
     log(f"training launches over {n_steps} steps: {launches} (expected {expected}); peak "
-        f"memory {peak / 2**30:.2f} GiB")
+        f"memory {rec['peak_memory_gib']:.2f} GiB")
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected {expected}")
     for m in metrics:
@@ -2650,7 +2652,15 @@ def phase_train(torch, kernels):
                   if p.grad is not None or p.requires_grad]
     if frozen_bad:
         raise AssertionError(f"frozen parameters with a gradient: {frozen_bad[:5]}")
+    check_record(rec)
     return launches
+
+
+def check_record(rec):
+    """A tool's record: finite numbers, strict JSON both ways."""
+    from videopainter_tpu_torch.tools import gates
+    gates.check_finite(rec)
+    json.loads(json.dumps(rec, allow_nan=False))
 
 
 def phase_train_lora(torch, kernels):
@@ -3251,6 +3261,153 @@ def phase_gates(torch, kernels):
     return launches
 
 
+TOOLS_SWEEP_BLOCKS = [(512, 2048), (1024, 2048)]   # the int8 block sweep's two candidates
+TOOLS_SWEEP_ITERS = 2
+# B4's rel L1 against B1 in the sweep, a [low, high) window per mode (phase 1 holds
+# B4 to its plain version). The H100 reads int8 0.0042-0.0043 and int8pv 0.0125:
+# the windows do not overlap, so a sweep that mixed its modes up fails.
+TOOLS_SWEEP_REL_L1 = {"int8": (0.0, 0.008), "int8pv": (0.008, 0.03)}
+
+
+def phase_tools(torch, kernels):
+    """Phase 15: the measurement tools (`videopainter_tpu_torch.tools`) at full
+    width. (a) `bench.gated_serving_rungs` on the committed `_cuda` gate
+    artifacts must pick int8_ascale_skip_42L with 4:48:5, and a copy whose
+    robustness schedule is renamed must drop the skip rung and record
+    `skip_gate_error` (a control that must fail the rule). (b) `bench.measure_rung`
+    at 42 layers: the gated headline (W8A8, int8 attention, calib_ascales_cuda.npz,
+    4:48:5, the VAE decode), then bf16_batched_42L without the VAE; each
+    rung's launches held exactly (4 steps of 44 attention calls), every
+    number finite, layers_measured 42. (c) is phase 5 (the training tool's
+    `measure` at 42 layers). (d) `sweep_int8_blocks.sweep` on two block
+    pairs, both modes, at [1, 48, 17,776, 64]. (e) `bench_vae_decode.sweep`
+    on the default combo and 320x480 fbs2. Returns (launches of the whole
+    phase, the results)."""
+    import numpy as np
+    from videopainter_tpu_torch.flagship import build_models
+    from videopainter_tpu_torch.tools import bench, bench_vae_decode, gates
+    from videopainter_tpu_torch.tools import sweep_int8_blocks as sweep
+
+    dev = torch.device("cuda")
+    repo = Path(__file__).resolve().parent
+    walls, out = {}, {}
+    kernels.reset_launches()
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # (a) the gated headline and its control
+    s0 = time.perf_counter()
+    rungs, info = bench.gated_serving_rungs(repo)
+    head = rungs[0] if rungs else (None, [])
+    spec = head[1][head[1].index("--skip-spec") + 1] if "--skip-spec" in head[1] else None
+    log(f"tools: gated rungs {[r[0] for r in rungs]}, headline {head[0]} {spec}; skip gate "
+        f"{json.dumps(info.get('skip_gate'))}")
+    if (head[0], spec) != ("int8_ascale_skip_42L", "4:48:5") or "skip_gate_error" in info:
+        raise AssertionError(f"gated headline {head[0]} {spec}, expected int8_ascale_skip_42L "
+                             f"4:48:5: {info}")
+    control = Path(tempfile.mkdtemp(prefix="gate_control_", dir="build"))
+    try:
+        for f in (bench.GATE_INT8, bench.SCALES, bench.GATE_SKIP):
+            shutil.copy(repo / f, control / f)
+        sk = json.loads((control / bench.GATE_SKIP).read_text())
+        sk["robustness"]["schedule"] += "-renamed"
+        (control / bench.GATE_SKIP).write_text(json.dumps(sk))
+        c_rungs, c_info = bench.gated_serving_rungs(control)
+    finally:
+        shutil.rmtree(control, ignore_errors=True)
+    log(f"tools: renamed-schedule control: rungs {[r[0] for r in c_rungs]}, skip_gate_error "
+        f"{c_info.get('skip_gate_error')!r}")
+    if any(r[0] == "int8_ascale_skip_42L" for r in c_rungs) or "skip_gate_error" not in c_info:
+        raise AssertionError("a renamed robustness schedule must drop the skip rung")
+    walls["a gate rule"] = time.perf_counter() - s0
+
+    # (b) the two 42-layer rungs, each from its own seeded build
+    n_calls = 4 * (42 + 2)   # 1 warm-up + 3 timed steps, one B = 2 call a block
+    for name, argv, key in (
+            ("int8_ascale_skip_42L", head[1], "flash_int8_fwd"),
+            ("bf16_batched_42L", ["--layers", "42", "--skip-vae"], "flash_fwd")):
+        s0 = time.perf_counter()
+        args = bench.parse_args(argv)
+        tcfg = bench.model_config(args)
+        t, b = build_models(torch.Generator(device=dev).manual_seed(gates.WEIGHTS_SEED),
+                            device=dev, tcfg=tcfg)
+        models = bench.apply_options({"transformer": t, "branch": b}, args)
+        del t, b
+        inp = bench.gate_inputs(torch.Generator(device=dev).manual_seed(2), tcfg,
+                                bench.FLAGSHIP_LATENT, rect_mask=False)
+        kernels.reset_launches()
+        res = bench.measure_rung(models, inp, args, build_vae=lambda: bench.build_vae(dev),
+                                 argv=["chip_smoke.py phase 15", name])
+        launches = dict(kernels.LAUNCHES)
+        del models, inp
+        free_cuda(torch)
+        add(launches)
+        d = res["detail"]
+        walls[f"b {name}"] = time.perf_counter() - s0
+        log(f"tools: {name}: {res['value']:.4f} clips/min, step {d['step_ms_measured']:.1f} ms "
+            f"({d['cfg_mode']} CFG), first step {d['first_step_s']:.2f} s, skipped "
+            f"{d['skipped_steps']}, cached step {d['cached_step_ms']} ms, VAE decode "
+            f"{d['vae_decode_s']:.3f} s, clip {d['clip_s']:.2f} s, peak "
+            f"{d['peak_memory_gib']:.2f} GiB; launches {launches} (predicted {key} {n_calls})")
+        check_record(res)
+        want = {**dict.fromkeys(kernels.LAUNCHES, 0), key: n_calls}
+        if launches != want or d["launches"] != want:
+            raise AssertionError(f"{name}: launches {launches}, predicted {want}")
+        if d["layers_measured"] != 42:
+            raise AssertionError(f"{name}: layers_measured {d['layers_measured']}")
+        if name.startswith("int8") and not (d["skipped_steps"] == 35 and d["vae_decode_s"] > 0):
+            raise AssertionError(f"{name}: skipped {d['skipped_steps']}, decode "
+                                 f"{d['vae_decode_s']}")
+        out[name] = res
+
+    # (d) the int8 block sweep
+    s0 = time.perf_counter()
+    q, k, v = sweep.operands(48, 17776, dev)
+    kernels.reset_launches()
+    sw = sweep.sweep(q, k, v, TOOLS_SWEEP_BLOCKS, [False, True], TOOLS_SWEEP_ITERS)
+    launches = dict(kernels.LAUNCHES)
+    add(launches)
+    del q, k, v
+    per_call = TOOLS_SWEEP_ITERS + 2   # a warm call, the timed ones, the output compared
+    want = {**dict.fromkeys(kernels.LAUNCHES, 0), "flash_fwd": per_call,
+            "flash_int8_fwd": per_call * len(TOOLS_SWEEP_BLOCKS) * 2}
+    log(f"tools: block sweep B1 {sw['bf16']['ms']:.3f} ms; " + "; ".join(
+        f"{r['mode']} {r['blk_q']}x{r['blk_k']} {r.get('ms', float('nan')):.3f} ms rel L1 "
+        f"{r.get('rel_l1', float('nan')):.4f}" for r in sw["rows"]) + f"; launches {launches}")
+    check_record(sw)
+    if launches != want:
+        raise AssertionError(f"block sweep launches {launches}, predicted {want}")
+    if any("ms" not in r or not (TOOLS_SWEEP_REL_L1[r["mode"]][0] <= r["rel_l1"]
+                                 < TOOLS_SWEEP_REL_L1[r["mode"]][1]) for r in sw["rows"]):
+        raise AssertionError(f"block sweep rows {sw['rows']}")
+    walls["d block sweep"] = time.perf_counter() - s0
+    out["sweep_int8_blocks"] = sw
+
+    # (e) the decode sweep
+    s0 = time.perf_counter()
+    vae = bench.build_vae(dev)
+    z = torch.randn(bench.VAE_LATENT, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(torch.bfloat16)
+    vs = bench_vae_decode.sweep(vae, z, [bench_vae_decode.COMBOS[0], bench_vae_decode.COMBOS[2]])
+    del vae, z
+    log("tools: decode sweep " + "; ".join(
+        f"{r['config']} {r.get('decode_s', float('nan')):.3f} s, PSNR {r.get('psnr_vs_default')}"
+        for r in vs["rows"]))
+    check_record(vs)
+    rows = vs["rows"]
+    if not (len(rows) == 2 and all("decode_s" in r for r in rows)
+            and rows[1]["psnr_vs_default"] is not None
+            and np.isfinite(rows[1]["psnr_vs_default"])):
+        raise AssertionError(f"decode sweep rows {rows}")
+    walls["e decode sweep"] = time.perf_counter() - s0
+    out["bench_vae_decode"] = vs
+    log("tools: phase 15 wall " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    return total, out
+
+
 def np_equal(a, b):
     import numpy as np
     return a.shape == b.shape and bool(np.array_equal(a, b))
@@ -3419,6 +3576,10 @@ def main() -> int:
 
     gate_launches = timed_phase("14 gate tools at full width", phase_gates, torch, kernels)
     free()
+    tools_launches, _ = timed_phase("15 measurement tools at full width", phase_tools, torch,
+                                    kernels)
+    check_no_yardstick(tools_launches, "phase 15")
+    free()
 
     # the uniform-scale precursor is driven by its tool, the port's
     # `tools/bench_int8_attn`: its main path, at a depth cut to 2 iterations
@@ -3446,6 +3607,7 @@ def main() -> int:
              "launches_app": demo["app"]["flash_fwd"],
              "launches_parallel": par_launches["flash_fwd"],
              "launches_gates": gate_launches["flash_fwd"],
+             "launches_tools": tools_launches["flash_fwd"],
              "launches_ring_decomposition": sum(
                  v if isinstance(v, int) else v["flash_fwd"]
                  for v in ring13["launches"].values()), **stats},
@@ -3468,7 +3630,8 @@ def main() -> int:
              "replaces": "videopainter_tpu/ops/flash_attention_int8.py:44",
              "launches": anyl_launches["flash_int8_fwd"],
              "launches_parallel": par_launches["flash_int8_fwd"],
-             "launches_gates": gate_launches["flash_int8_fwd"], **b4},
+             "launches_gates": gate_launches["flash_int8_fwd"],
+             "launches_tools": tools_launches["flash_int8_fwd"], **b4},
             {"name": "flash_int8_uniform_fwd", "route": "cuda",
              "source": csrc + fa8._UNIFORM_SOURCE,
              "replaces": "tools/bench_int8_attn.py:37",

@@ -585,6 +585,48 @@ def test_branch_adafactor_step_matches_jax(stack, branch_reference):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("lr", [1e-5, 1e-3])
+def test_branch_adamw_steps_from_zero_projections_match_jax(stack, lr):
+    """Two AdamW updates of a branch initialised from the backbone (its output
+    projections zero, as the training smoke builds it), the same prepared
+    tensors every step (the smoke's --fixed-noise), at the smoke's widths:
+    the three losses agree with the JAX step under optax at rtol 1e-5 and
+    the parameters within 2e-2 lr (a first AdamW step is lr g / (|g| + eps),
+    which turns a gradient's GRAD_TOL difference near |g| ~ eps into a part
+    of lr). At these widths neither side's loss rises after the first update."""
+    s = stack
+    cfg = jax_cfg()
+    prep, embeds = jax_prepared(s, cfg)
+    rope = jprepare_rope(s.jt, 64, 96, prep[4].shape[1], s.jv.spatial_compression_ratio)
+    dit, _, vae = s.port()
+    branch = CogVideoXBranch(tcfg.BranchConfig.from_transformer(s.tt, num_layers=2))
+    branch.init_from_transformer(dit)
+    assert float(branch.branch_blocks[0].weight.abs().max()) == 0
+    topt, jopt = make_optimizer(lr=lr), joptim.make_optimizer(lr=lr)
+    state = init_branch_train_state(branch, topt)
+    step = make_branch_train_step(dit, branch, vae, s.sched, topt, port_cfg())
+    jtree = to_jax_layout({k: v.detach().clone() for k, v in state.trainable.items()}, s.bp)
+    jstep = jtrain.make_branch_train_step(s.jdit, s.jbranch, s.jvae, s.jsched, jopt, cfg)
+    jstate = jtrain.init_branch_train_state(jax.tree.map(jnp.asarray, jtree), jopt)
+    tensors = [T(x) for x in prep]
+    losses, jlosses = [], []
+    for _ in range(3):   # the loss before each update; the third follows two updates
+        state, m = step.grad_step(state, *tensors, T(embeds), step.rope(tensors))
+        jstate, jm = jax_fetch(jstep.grad_step, jstate, s.tp, *map(jnp.asarray, prep),
+                               jnp.asarray(embeds), rope)
+        losses.append(float(m["total_loss"]))
+        jlosses.append(float(jm["total_loss"]))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert losses[2] < losses[1] < losses[0] and jlosses[2] < jlosses[1] < jlosses[0]
+    got = to_jax_layout(state.trainable, s.bp)
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree.leaves(jstate.trainable)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=2e-2 * lr,
+                                   err_msg=jax.tree_util.keystr(path))
+    moved = np.abs(got["branch_blocks"]["kernel"] - jtree["branch_blocks"]["kernel"]).max()
+    assert moved > 0.5 * lr   # the zero projections took a step of about lr
+
+
 def test_make_optimizer_surface():
     """As tests/test_training.py holds the JAX factory: every choice moves the
     parameters by a finite amount, and Adafactor's state is smaller."""

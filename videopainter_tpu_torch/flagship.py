@@ -64,21 +64,29 @@ def build_pipeline(generator: torch.Generator, *, device="cuda", dtype=torch.bfl
                    pipeline_cls=CogVideoXI2VDualInpaintPipeline):
     """Random-weight pipeline, built on the meta device and filled in place
     (the weights are never materialized twice)."""
+    transformer, branch = build_models(generator, device=device, dtype=dtype, tcfg=tcfg,
+                                       branch_layers=branch_layers)
+    vae = _build_random(generator, lambda **kw: AutoencoderKLCogVideoX(vcfg or VAEConfig(), **kw),
+                        device, dtype)
+    return pipeline_cls(transformer, branch, vae,
+                        CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference()),
+                        device=device)
+
+
+def _build_random(generator: torch.Generator, ctor, device, dtype):
+    m = ctor(device="meta", dtype=dtype).to_empty(device=device)
+    return m.init_random_(generator)
+
+
+def build_models(generator: torch.Generator, *, device="cuda", dtype=torch.bfloat16,
+                 tcfg: Optional[TransformerConfig] = None, branch_layers: int = 2):
+    """(DiT, branch) with random weights, drawn in `build_pipeline`'s order:
+    the same generator state gives `build_pipeline`'s DiT and branch."""
     tcfg = tcfg or TransformerConfig.cogvideox_5b_i2v()
     bcfg = BranchConfig.from_transformer(tcfg, num_layers=branch_layers)
-    vcfg = vcfg or VAEConfig()
-
-    def build(ctor):
-        m = ctor(device="meta", dtype=dtype).to_empty(device=device)
-        return m.init_random_(generator)
-
-    return pipeline_cls(
-        build(lambda **kw: CogVideoXTransformer3D(tcfg, **kw)),
-        build(lambda **kw: CogVideoXBranch(bcfg, **kw)),
-        build(lambda **kw: AutoencoderKLCogVideoX(vcfg, **kw)),
-        CogVideoXDPMScheduler(SchedulerConfig.cogvideox_5b_inference()), device=device)
-
-
+    return (_build_random(generator, lambda **kw: CogVideoXTransformer3D(tcfg, **kw), device,
+                          dtype),
+            _build_random(generator, lambda **kw: CogVideoXBranch(bcfg, **kw), device, dtype))
 
 
 def build_anyl_int8_pipeline(generator: torch.Generator, *, device="cuda",
@@ -149,14 +157,11 @@ def build_training(generator: torch.Generator, *, device="cuda",
     bcfg = BranchConfig.from_transformer(tcfg, num_layers=2)
     vcfg = vcfg or VAEConfig()
 
-    def build(ctor, dt):
-        m = ctor(device="meta", dtype=dt).to_empty(device=device)
-        return m.init_random_(generator)
-
-    transformer = build(lambda **kw: CogVideoXTransformer3D(tcfg, **kw), dtype)
-    vae = build(lambda **kw: AutoencoderKLCogVideoX(vcfg, **kw), dtype)
-    branch = build(lambda **kw: CogVideoXBranch(bcfg, **kw),
-                   torch.float32 if mode == "branch" else dtype)
+    transformer = _build_random(generator, lambda **kw: CogVideoXTransformer3D(tcfg, **kw),
+                                device, dtype)
+    vae = _build_random(generator, lambda **kw: AutoencoderKLCogVideoX(vcfg, **kw), device, dtype)
+    branch = _build_random(generator, lambda **kw: CogVideoXBranch(bcfg, **kw), device,
+                           torch.float32 if mode == "branch" else dtype)
     branch.init_from_transformer(transformer)
     if mode == "branch":
         trainable = branch

@@ -20,7 +20,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -212,6 +212,25 @@ def read_artifact(path) -> Dict:
 def emit(record: Dict) -> None:
     """One strict-JSON line on stdout, flushed (a long run's progress)."""
     print(json.dumps(record, allow_nan=False), flush=True)
+
+
+def run_module_rung(module: str, argv, timeout: float,
+                    runner=None) -> Tuple[Optional[Dict], Dict]:
+    """`python -m module *argv` from the root of the checkout, as one rung of
+    a ladder: (its last JSON line, {}) when it exits 0 with one, else (None,
+    {"error": "OOM" | "error" | "timeout", "tail": ...})."""
+    runner = runner or subprocess.run
+    try:
+        res = runner([sys.executable, "-m", module] + list(argv), capture_output=True,
+                     text=True, timeout=timeout, cwd=str(REPO))
+    except subprocess.TimeoutExpired:
+        return None, {"error": "timeout"}
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if res.returncode == 0 and lines:
+        return json.loads(lines[-1]), {}
+    err = (res.stderr or res.stdout)[-2000:]
+    oom = "OutOfMemoryError" in err or "CUDA out of memory" in err
+    return None, {"error": "OOM" if oom else "error", "tail": err[-300:]}
 
 
 # -- decoded pixels and perceptual legs ----------------------------------------------------------
