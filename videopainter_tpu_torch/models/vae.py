@@ -31,6 +31,7 @@ from torch import nn
 
 from ..config import VAEConfig
 from ..ops.basic import GroupNorm, init_random_, silu
+from ..utils.profiling import annotate
 
 Cache = Optional[Dict[str, Any]]
 
@@ -103,6 +104,14 @@ class SpatialNorm3D(nn.Module):
         return self.norm_layer(f) * self.conv_y(zq)[0] + self.conv_b(zq)[0]
 
 
+def _norm_silu(norm: nn.Module, h: torch.Tensor, zq: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """silu(norm(h)), or silu(norm(h, zq)) for a SpatialNorm3D, under the
+    `vae.norm` span."""
+    with annotate("vae.norm"):
+        return silu(norm(h) if zq is None else norm(h, zq))
+
+
 class ResnetBlock3D(nn.Module):
     """CogVideoXResnetBlock3D, temb_channels=0 path; a plain 1x1x1
     `conv_shortcut` when the channel count changes."""
@@ -121,15 +130,12 @@ class ResnetBlock3D(nn.Module):
         self.conv2 = CausalConv3d(cout, cout, 3, **kw)
         self.conv_shortcut = nn.Conv3d(cin, cout, 1, **kw) if cin != cout else None
 
-    def _norm(self, norm, h, zq):
-        return norm(h, zq) if zq is not None else norm(h)
-
     def forward(self, x: torch.Tensor, zq: Optional[torch.Tensor], cache: Cache
                 ) -> Tuple[torch.Tensor, dict]:
         cache = cache or {}
-        h = silu(self._norm(self.norm1, x, zq))
+        h = _norm_silu(self.norm1, x, zq)
         h, c1 = self.conv1(h, cache.get("conv1"))
-        h = silu(self._norm(self.norm2, h, zq))
+        h = _norm_silu(self.norm2, h, zq)
         h, c2 = self.conv2(h, cache.get("conv2"))
         if self.conv_shortcut is not None:
             x = F.conv3d(x, self.conv_shortcut.weight.to(x.dtype),
@@ -238,7 +244,7 @@ class Encoder3D(nn.Module):
         for j, rn in enumerate(self.mid_block.resnets):
             h, nm[f"res_{j}"] = rn(h, None, mc.get(f"res_{j}"))
         new["mid"] = nm
-        h = silu(self.norm_out(h))
+        h = _norm_silu(self.norm_out, h)
         h, new["conv_out"] = self.conv_out(h, cache.get("conv_out"))
         return h, new
 
@@ -286,7 +292,7 @@ class Decoder3D(nn.Module):
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h, first_chunk=first_chunk)
             new[f"up_{i}"] = nb
-        h = silu(self.norm_out(h, z))
+        h = _norm_silu(self.norm_out, h, z)
         h, new["conv_out"] = self.conv_out(h, cache.get("conv_out"))
         return h, new
 
@@ -443,14 +449,16 @@ class AutoencoderKLCogVideoX(nn.Module):
     # -- public API (channels-last, as the JAX package) -------------------------
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> DiagonalGaussian:
-        """x: [B, T, H, W, 3] -> DiagonalGaussian over [B, T', H/8, W/8, C_lat]."""
-        x = _to_ncdhw(x)
-        if self.use_slicing and x.shape[0] > 1:
-            h = torch.cat([self._encode_single(x[i:i + 1]) for i in range(x.shape[0])])
-        else:
-            h = self._encode_single(x)
-        mean, logvar = _to_ndhwc(h).chunk(2, dim=-1)
-        return DiagonalGaussian(mean, logvar)
+        """x: [B, T, H, W, 3] -> DiagonalGaussian over [B, T', H/8, W/8, C_lat],
+        under the `vae.encode` span."""
+        with annotate("vae.encode"):
+            x = _to_ncdhw(x)
+            if self.use_slicing and x.shape[0] > 1:
+                h = torch.cat([self._encode_single(x[i:i + 1]) for i in range(x.shape[0])])
+            else:
+                h = self._encode_single(x)
+            mean, logvar = _to_ndhwc(h).chunk(2, dim=-1)
+            return DiagonalGaussian(mean, logvar)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .basic import LayerNorm, Linear
 from .flash_attention import flash_attention
 from .flash_attention_int8 import flash_attention_int8
@@ -146,74 +147,76 @@ def joint_attention(
      - encoder_hidden_states is None      -> wo_text processor
      - resample_mask / prev_resample given -> resample processor
      - prev_hidden_states + weight         -> base processor with the two-call blend
+    The whole call runs under the `attn` span.
     """
-    if encoder_hidden_states is not None:
-        text_len = encoder_hidden_states.shape[1]
-        x = torch.cat([encoder_hidden_states, hidden_states], dim=1)
-    else:
-        text_len = 0
-        x = hidden_states
-    b, s, _ = x.shape
-    heads = attn.num_heads   # local heads under tensor parallelism
-    split = lambda t: t.view(t.shape[0], t.shape[1], heads, t.shape[2] // heads)
-    norm_k = (lambda t: t) if attn.norm_k is None else attn.norm_k
-    attend = _pick_flash(use_flash) if use_flash else sdpa
-    # under sequence parallelism the keys and values of every rank's video
-    # tokens ([B, S, H, D] rows) are gathered before attention
-    gather = (lambda t: t) if sp is None else (lambda t: sp.gather_kv(t, text_len))
-    heads_first = lambda t: t.transpose(1, 2)
-
-    use_resample = resample_mask is not None or prev_resample_mask is not None
-    has_prev = prev_hidden_states is not None and prev_clip_weight is not None
-
-    q_flat, k_flat, v_flat = attn.project(x)
-    q = split(q_flat)
-    if attn.norm_q is not None:
-        q = attn.norm_q(q)
-    q = heads_first(_rope_video_slice(q, rope, text_len))
-    k = _rope_video_slice(norm_k(split(k_flat)), rope, text_len)
-    v = split(v_flat)
-
-    if sp is not None and sp.ring and text_len > 0 and not use_resample and not has_prev:
-        from ..parallel.ring_attention import ring_joint_attention
-
-        k, v = heads_first(k), heads_first(v)
-        out_t, out_v = ring_joint_attention(
-            q[:, :, :text_len], q[:, :, text_len:], k[:, :, :text_len], k[:, :, text_len:],
-            v[:, :, :text_len], v[:, :, text_len:], sp.group, use_flash=bool(use_flash))
-        out = torch.cat([out_t, out_v], dim=2)
-    else:
-        k, v = heads_first(gather(k)), heads_first(gather(v))
-        if use_resample:
-            # the mask multiplies the raw K / V projections
-            if has_prev:
-                m = prev_resample_mask[..., None]
-                _, km_flat, vm_flat = attn.project(prev_hidden_states, with_q=False)
-                km_flat = km_flat * m.to(km_flat.dtype) * prev_clip_weight
-                vm_flat = vm_flat * m.to(vm_flat.dtype) * prev_clip_weight
-            else:
-                m = resample_mask[..., None]
-                km_flat = k_flat * m.to(k_flat.dtype)
-                vm_flat = v_flat * m.to(v_flat.dtype)
-            km = heads_first(gather(_rope_video_slice(norm_k(split(km_flat)), rope, text_len)))
-            vm = heads_first(gather(split(vm_flat)))
-            # S_kv = 2 * S_q: the kernels take asymmetric lengths
-            out = attend(q, torch.cat([k, km], dim=2), torch.cat([v, vm], dim=2))
-        elif has_prev:
-            # the blend is linear in the attention outputs, so two calls replace
-            # the reference's two SDPAs
-            _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
-            pk = heads_first(gather(_rope_video_slice(norm_k(split(pk_flat)), rope, text_len)))
-            pv = heads_first(gather(split(pv_flat)))
-            w = prev_clip_weight
-            out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w
+    with annotate("attn"):
+        if encoder_hidden_states is not None:
+            text_len = encoder_hidden_states.shape[1]
+            x = torch.cat([encoder_hidden_states, hidden_states], dim=1)
         else:
-            out = attend(q, k, v)
+            text_len = 0
+            x = hidden_states
+        b, s, _ = x.shape
+        heads = attn.num_heads   # local heads under tensor parallelism
+        split = lambda t: t.view(t.shape[0], t.shape[1], heads, t.shape[2] // heads)
+        norm_k = (lambda t: t) if attn.norm_k is None else attn.norm_k
+        attend = _pick_flash(use_flash) if use_flash else sdpa
+        # under sequence parallelism the keys and values of every rank's video
+        # tokens ([B, S, H, D] rows) are gathered before attention
+        gather = (lambda t: t) if sp is None else (lambda t: sp.gather_kv(t, text_len))
+        heads_first = lambda t: t.transpose(1, 2)
 
-    out = attn.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
-    if encoder_hidden_states is None:
-        return out, None
-    return out[:, text_len:], out[:, :text_len]
+        use_resample = resample_mask is not None or prev_resample_mask is not None
+        has_prev = prev_hidden_states is not None and prev_clip_weight is not None
+
+        q_flat, k_flat, v_flat = attn.project(x)
+        q = split(q_flat)
+        if attn.norm_q is not None:
+            q = attn.norm_q(q)
+        q = heads_first(_rope_video_slice(q, rope, text_len))
+        k = _rope_video_slice(norm_k(split(k_flat)), rope, text_len)
+        v = split(v_flat)
+
+        if sp is not None and sp.ring and text_len > 0 and not use_resample and not has_prev:
+            from ..parallel.ring_attention import ring_joint_attention
+
+            k, v = heads_first(k), heads_first(v)
+            out_t, out_v = ring_joint_attention(
+                q[:, :, :text_len], q[:, :, text_len:], k[:, :, :text_len], k[:, :, text_len:],
+                v[:, :, :text_len], v[:, :, text_len:], sp.group, use_flash=bool(use_flash))
+            out = torch.cat([out_t, out_v], dim=2)
+        else:
+            k, v = heads_first(gather(k)), heads_first(gather(v))
+            if use_resample:
+                # the mask multiplies the raw K / V projections
+                if has_prev:
+                    m = prev_resample_mask[..., None]
+                    _, km_flat, vm_flat = attn.project(prev_hidden_states, with_q=False)
+                    km_flat = km_flat * m.to(km_flat.dtype) * prev_clip_weight
+                    vm_flat = vm_flat * m.to(vm_flat.dtype) * prev_clip_weight
+                else:
+                    m = resample_mask[..., None]
+                    km_flat = k_flat * m.to(k_flat.dtype)
+                    vm_flat = v_flat * m.to(v_flat.dtype)
+                km = heads_first(gather(_rope_video_slice(norm_k(split(km_flat)), rope, text_len)))
+                vm = heads_first(gather(split(vm_flat)))
+                # S_kv = 2 * S_q: the kernels take asymmetric lengths
+                out = attend(q, torch.cat([k, km], dim=2), torch.cat([v, vm], dim=2))
+            elif has_prev:
+                # the blend is linear in the attention outputs, so two calls replace
+                # the reference's two SDPAs
+                _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
+                pk = heads_first(gather(_rope_video_slice(norm_k(split(pk_flat)), rope, text_len)))
+                pv = heads_first(gather(split(pv_flat)))
+                w = prev_clip_weight
+                out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w
+            else:
+                out = attend(q, k, v)
+
+        out = attn.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
+        if encoder_hidden_states is None:
+            return out, None
+        return out[:, text_len:], out[:, :text_len]
 
 
 @torch.no_grad()

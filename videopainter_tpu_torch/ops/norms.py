@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .basic import LayerNorm, Linear, silu
 
 
@@ -31,18 +32,19 @@ class LayerNormZero(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor,
                            Optional[torch.Tensor]]:
         """Returns (h, enc_h, gate, enc_gate); enc_* None when
-        encoder_hidden_states is None."""
-        mod = self.linear(silu(temb.float()))
-        shift, scale, gate, enc_shift, enc_scale, enc_gate = mod.chunk(6, dim=-1)
-        dt = hidden_states.dtype
-        h = self.norm(hidden_states)
-        h = (h.float() * (1 + scale[:, None, :]) + shift[:, None, :]).to(dt)
-        if encoder_hidden_states is None:
-            return h, None, gate[:, None, :].to(dt), None
-        e = self.norm(encoder_hidden_states)
-        e = (e.float() * (1 + enc_scale[:, None, :]) + enc_shift[:, None, :]).to(
-            encoder_hidden_states.dtype)
-        return h, e, gate[:, None, :].to(dt), enc_gate[:, None, :].to(dt)
+        encoder_hidden_states is None. Runs under the `dit.adaln` span."""
+        with annotate("dit.adaln"):
+            mod = self.linear(silu(temb.float()))
+            shift, scale, gate, enc_shift, enc_scale, enc_gate = mod.chunk(6, dim=-1)
+            dt = hidden_states.dtype
+            h = self.norm(hidden_states)
+            h = (h.float() * (1 + scale[:, None, :]) + shift[:, None, :]).to(dt)
+            if encoder_hidden_states is None:
+                return h, None, gate[:, None, :].to(dt), None
+            e = self.norm(encoder_hidden_states)
+            e = (e.float() * (1 + enc_scale[:, None, :]) + enc_shift[:, None, :]).to(
+                encoder_hidden_states.dtype)
+            return h, e, gate[:, None, :].to(dt), enc_gate[:, None, :].to(dt)
 
 
 class AdaLayerNorm(nn.Module):

@@ -42,6 +42,7 @@ from ..models.vae import nearest_resize3d_ndhwc
 from ..ops.patch_embed import pool_patch_mask
 from ..ops.rope import get_3d_rotary_pos_embed, get_resize_crop_region_for_grid
 from ..schedulers import CogVideoXDPMScheduler
+from ..utils.profiling import annotate
 
 
 def get_strength_timesteps(timesteps: np.ndarray, num_inference_steps: int,
@@ -198,7 +199,8 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
     `prev_clip_weight` (float) and optionally `prev_hidden_indices` [B, M]:
     the any-length cross-window conditioning. With
     dcfg.capture_hidden_states the final step also returns its per-layer
-    states. progress_fn(i) is called after step i completes on the host side.
+    states. progress_fn(i) is called after step i completes on the host side,
+    outside the step's `denoise.step` span.
     """
     if dcfg.mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {dcfg.mode!r}")
@@ -373,14 +375,17 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         latents, old_x0, pred = inputs.latents, None, None
         hidden_states_list = resample_mask = None
         for i in range(S):
-            if run[i]:
-                capture = dcfg.capture_hidden_states and i == S - 1
-                out = model_step(inputs, rope, latents, i, prev_state, capture)
-                pred = out.sample.float()
-                if capture:
-                    hidden_states_list, resample_mask = out.hidden_states_list, out.resample_mask
-                del out
-            latents, old_x0 = scheduler_and_blend(inputs, latents, old_x0, pred, i, generator)
+            with annotate("denoise.step"):
+                if run[i]:
+                    capture = dcfg.capture_hidden_states and i == S - 1
+                    out = model_step(inputs, rope, latents, i, prev_state, capture)
+                    pred = out.sample.float()
+                    if capture:
+                        hidden_states_list = out.hidden_states_list
+                        resample_mask = out.resample_mask
+                    del out
+                latents, old_x0 = scheduler_and_blend(inputs, latents, old_x0, pred, i,
+                                                      generator)
             if progress_fn is not None:
                 progress_fn(i)
         return latents, hidden_states_list, resample_mask

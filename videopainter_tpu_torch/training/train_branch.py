@@ -22,6 +22,9 @@ their temporaries are freed before the DiT's backward. `state.trainable` is
 the dict of the branch's parameters (or the stacked LoRA tree); the optimizer
 updates those tensors in place and the step returns the state with its
 counter advanced. Randomness comes from an explicit `torch.Generator`.
+Under a profiler a step is traced as the span `train.step`, its backward
+as `train.backward` and its gradient norm and update as `train.optimizer`
+(`utils/profiling.py`).
 
 Both steps expose `train_step.grad_step(state, noisy_vid, image_latents,
 branch_cond, mask_lat, model_input, timesteps, prompt_embeds, rope)`, the
@@ -55,6 +58,7 @@ from ..models.vae import DiagonalGaussian
 from ..parallel import comm
 from ..parallel.mesh import AXES, axis_rank, axis_size, current_mesh, use_mesh
 from ..pipelines.common import prepare_rope, resize_mask_to_latent
+from ..utils.profiling import annotate
 from .optim import Zero, global_norm
 
 
@@ -288,14 +292,16 @@ def _update(state: BranchTrainState, optimizer, cfg, total, loss, inp_loss, view
     """Gradients of `total` w.r.t. the trainable leaves (synced over the
     mesh), the optimizer's in-place update, and the step's metrics."""
     leaves = tree_leaves(state.trainable)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    with annotate("train.backward"):
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
     # a parameter the forward does not use has a zero gradient, as in JAX
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     if view is not None:
         grads = view.sync_grads(grads)
-    gnorm_before = global_norm(grads) if view is None else view.grad_norm(grads, leaves)
-    with torch.no_grad():
-        opt_state = optimizer.update_(leaves, grads, state.opt_state)
+    with annotate("train.optimizer"):
+        gnorm_before = global_norm(grads) if view is None else view.grad_norm(grads, leaves)
+        with torch.no_grad():
+            opt_state = optimizer.update_(leaves, grads, state.opt_state)
     mean = (lambda x: x.detach()) if view is None else view.mean
     metrics = {"loss": mean(loss), "inpainting_loss": mean(inp_loss),
                "total_loss": mean(total),
@@ -311,14 +317,15 @@ def _make_train_step(prepare, grad_step, transformer, vae, cfg, mesh=None):
                             vae.cfg.spatial_compression_ratio, device=prep[0].device)
 
     def train_step(state: BranchTrainState, batch, generator: Optional[torch.Generator] = None):
-        prep = prepare(batch, generator)
-        embeds = batch["prompt_embeds"]
-        if mesh is None:
-            return grad_step(state, *prep, embeds, rope(prep))
-        n, r = axis_size(mesh, AXES.data), axis_rank(mesh, AXES.data)
-        b = embeds.shape[0]
-        with use_mesh(mesh):
-            return grad_step(state, *prep, embeds[r * b // n:(r + 1) * b // n], rope(prep))
+        with annotate("train.step"):
+            prep = prepare(batch, generator)
+            embeds = batch["prompt_embeds"]
+            if mesh is None:
+                return grad_step(state, *prep, embeds, rope(prep))
+            n, r = axis_size(mesh, AXES.data), axis_rank(mesh, AXES.data)
+            b = embeds.shape[0]
+            with use_mesh(mesh):
+                return grad_step(state, *prep, embeds[r * b // n:(r + 1) * b // n], rope(prep))
 
     train_step.grad_step = grad_step
     train_step.prepare = prepare

@@ -1,11 +1,29 @@
-"""Profiling regions for the entry points.
+"""Profiling regions for the entry points, and the port's spans.
 
 Counterpart of `videopainter_tpu/utils/profiling.py`, on `torch.profiler`:
 `profile_region("denoise", out_dir)` traces a region (CPU, and the card's
 kernels when CUDA is present) and writes a Chrome trace to
 `out_dir/<name>/trace.json` (Perfetto opens it); `maybe_profile(enabled, ...)`
-is the same behind a flag (the CLIs' `--profile`); `annotate(name)` names a
-span inside a trace.
+is the same behind a flag (the CLIs' `--profile`).
+
+`annotate(name)` is the port's one span: a `record_function` range in the
+trace of whatever `torch.profiler` is active (these regions, a benchmark's
+traced window), on the profiler's clock, so the profiler's correlation ids
+tie every kernel to the span it was launched in. With no profiler active it
+records nothing. The spans the port opens:
+
+ - `denoise.step`: one step of `make_denoise_fn`'s loop, the model and the
+   scheduler with its blend, closed before the caller's `progress_fn`;
+ - `dit.adaln`: a DiT or branch block's AdaLN norm (`LayerNormZero`), its
+   modulation linear and the float32 modulation;
+ - `attn`: one `joint_attention` call, from the text / video join through
+   the projections, QK norms, RoPE, the kernel(s) and `to_out`;
+ - `train.step`: one training step, the VAE prep and the gradient step;
+ - `train.backward`: the backward, with the checkpoints' recompute (which
+   reopens `dit.adaln` and `attn` inside it);
+ - `train.optimizer`: the gradient norm and the optimizer's update;
+ - `vae.encode`: one `AutoencoderKLCogVideoX.encode`;
+ - `vae.norm`: a VAE GroupNorm (or `SpatialNorm3D`) with the SiLU after it.
 """
 
 from __future__ import annotations
@@ -15,6 +33,7 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 DEFAULT_DIR = os.path.join("build", "torch_trace")
 
@@ -44,6 +63,16 @@ def maybe_profile(enabled: bool, name: str = "region", out_dir: str = DEFAULT_DI
         yield p
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named span in the trace (a context manager)."""
-    return torch.profiler.record_function(name)
+    """A span called `name` in the active profiler's trace (a context
+    manager). With no profiler active, one shared null context: an untraced
+    run pays one flag check a span, not a `record_function`'s enter and
+    exit. The flag is process-wide, so spans opened on the autograd
+    engine's threads (a checkpoint's recompute) are gated as the caller's
+    are."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
