@@ -17,6 +17,7 @@ import pytest
 from videopainter_tpu_torch import _kernels, native
 from videopainter_tpu_torch.ops import flash_attention as fa
 from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
+from videopainter_tpu_torch.ops import qk_prep
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', re.S)
 
@@ -41,7 +42,7 @@ def parse_entries(text: str):
 def bindings():
     """{(source, function): argtypes} of every wrapper module."""
     out = {}
-    for source, signatures in (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES):
+    for source, signatures in (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES, *qk_prep.SOURCES):
         for name, argtypes in signatures.items():
             out[(source, name)] = argtypes
     return out

@@ -13,9 +13,11 @@ common PTX in `hopper.cuh`, the two int8 kernels' common parts in
 `int8_wgmma.cuh`). `flash_fwd.cu`, `flash_bwd.cu` (dQ and dK/dV)
 and `flash_int8_fwd.cu` (both int8 entries) are the first, mma.sync versions
 of those kernels, kept as a yardstick that chip_smoke.py times against the
-new ones; no path of the port calls them. `connected_components.cu`, the
-connected-components labelling of SAM2's mask post-processing, is the one
-kernel with no Pallas counterpart (the reference's own CUDA kernel).
+new ones; no path of the port calls them. Two sources have no Pallas
+counterpart: `connected_components.cu`, the connected-components labelling
+of SAM2's mask post-processing (the reference's own CUDA kernel), and
+`qk_norm_rope.cu`, attention's per-head QK LayerNorm and RoPE, forward and
+backward (the JAX package leaves that prep to XLA's fusion).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
@@ -47,7 +49,8 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                             "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
                             "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
-                            "connected_components": 0}
+                            "connected_components": 0, "qk_norm_rope": 0,
+                            "qk_norm_rope_bwd": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS

@@ -19,8 +19,11 @@ CogVideoXAttnProcessor2_0, ..._resample and ..._wo_text):
 hand-written bf16 flash kernel (`ops/flash_attention.py`), `"int8"` and
 `"int8pv"` to the int8 one (`ops/flash_attention_int8.py`; inference only).
 
-Heads are split by a view ([B, S, H, d]) and handed to the flash kernels as
-[B, H, S, d] strided views: no transposed copies. The sequence is never
+The QK norms and RoPE run as one pass over q and k (`ops/qk_prep.py`
+`qk_norm_rope`: a hand-written kernel on the card, the eager composition on
+the CPU), which writes [B, S, H, d]; those and v's head split (a view) are
+handed to the flash kernels as [B, H, S, d] strided views: no transposed
+copies. The sequence is never
 padded, so the 2 S-key call needs no paged mask here.
 
 `fuse_qkv_projections` folds a model's to_q / to_k / to_v into one
@@ -51,7 +54,7 @@ from ..utils.profiling import annotate
 from .basic import LayerNorm, Linear
 from .flash_attention import flash_attention
 from .flash_attention_int8 import flash_attention_int8
-from .rope import apply_rotary_emb
+from .qk_prep import qk_norm_rope
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,15 +80,9 @@ def _pick_flash(use_flash):
     raise ValueError(f"use_flash must be False, True, 'int8' or 'int8pv', got {use_flash!r}")
 
 
-def _rope_video_slice(x: torch.Tensor, rope, text_len: int) -> torch.Tensor:
-    """RoPE on positions [text_len:] of [B, S, H, D]; cos/sin are [S_vid, D]."""
-    if rope is None:
-        return x
-    cos, sin = rope
-    out = torch.empty_like(x)
-    out[:, :text_len] = x[:, :text_len]
-    out[:, text_len:] = apply_rotary_emb(x[:, text_len:], cos[:, None, :], sin[:, None, :])
-    return out
+def _norm(ln: Optional[LayerNorm]):
+    """A QK norm as `qk_norm_rope` takes it: (weight, bias, eps), or None."""
+    return None if ln is None else (*ln.affine(), ln.eps)
 
 
 class Attention(nn.Module):
@@ -159,7 +156,9 @@ def joint_attention(
         b, s, _ = x.shape
         heads = attn.num_heads   # local heads under tensor parallelism
         split = lambda t: t.view(t.shape[0], t.shape[1], heads, t.shape[2] // heads)
-        norm_k = (lambda t: t) if attn.norm_k is None else attn.norm_k
+        # the keys of the variants' extra pages: norm_k and RoPE, no q
+        prep_k = lambda t: qk_norm_rope(None, t, heads=heads, norm_k=_norm(attn.norm_k),
+                                        rope=rope, text_len=text_len)[1]
         attend = _pick_flash(use_flash) if use_flash else sdpa
         # under sequence parallelism the keys and values of every rank's video
         # tokens ([B, S, H, D] rows) are gathered before attention
@@ -170,11 +169,9 @@ def joint_attention(
         has_prev = prev_hidden_states is not None and prev_clip_weight is not None
 
         q_flat, k_flat, v_flat = attn.project(x)
-        q = split(q_flat)
-        if attn.norm_q is not None:
-            q = attn.norm_q(q)
-        q = heads_first(_rope_video_slice(q, rope, text_len))
-        k = _rope_video_slice(norm_k(split(k_flat)), rope, text_len)
+        q, k = qk_norm_rope(q_flat, k_flat, heads=heads, norm_q=_norm(attn.norm_q),
+                            norm_k=_norm(attn.norm_k), rope=rope, text_len=text_len)
+        q = heads_first(q)
         v = split(v_flat)
 
         if sp is not None and sp.ring and text_len > 0 and not use_resample and not has_prev:
@@ -198,7 +195,7 @@ def joint_attention(
                     m = resample_mask[..., None]
                     km_flat = k_flat * m.to(k_flat.dtype)
                     vm_flat = v_flat * m.to(v_flat.dtype)
-                km = heads_first(gather(_rope_video_slice(norm_k(split(km_flat)), rope, text_len)))
+                km = heads_first(gather(prep_k(km_flat)))
                 vm = heads_first(gather(split(vm_flat)))
                 # S_kv = 2 * S_q: the kernels take asymmetric lengths
                 out = attend(q, torch.cat([k, km], dim=2), torch.cat([v, vm], dim=2))
@@ -206,7 +203,7 @@ def joint_attention(
                 # the blend is linear in the attention outputs, so two calls replace
                 # the reference's two SDPAs
                 _, pk_flat, pv_flat = attn.project(prev_hidden_states, with_q=False)
-                pk = heads_first(gather(_rope_video_slice(norm_k(split(pk_flat)), rope, text_len)))
+                pk = heads_first(gather(prep_k(pk_flat)))
                 pv = heads_first(gather(split(pv_flat)))
                 w = prev_clip_weight
                 out = attend(q, k, v) * (1.0 - w) + attend(q, pk, pv) * w

@@ -54,10 +54,12 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None, *, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics and affine."""
-    w = None if weight is None else weight.float()
-    b = None if bias is None else bias.float()
-    return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
+    """LayerNorm over the last axis with fp32 statistics and affine (float64
+    for float64 input)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    w = None if weight is None else weight.to(acc)
+    b = None if bias is None else bias.to(acc)
+    return F.layer_norm(x.to(acc), (x.shape[-1],), w, b, eps).to(x.dtype)
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
@@ -279,13 +281,18 @@ class LayerNorm(nn.LayerNorm):
     # sums over the group
     tp_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self):
+        """(weight, bias) as the norm applies them: under tensor parallelism
+        through `copy_to`, so their gradients sum over the group."""
         w, b = self.weight, self.bias
         if self.tp_group is not None:
             from ..parallel.comm import copy_to
             w = None if w is None else copy_to(w, self.tp_group)
             b = None if b is None else copy_to(b, self.tp_group)
-        return layer_norm(x, w, b, eps=self.eps)
+        return w, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, *self.affine(), eps=self.eps)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -70,13 +70,14 @@ def get_resize_crop_region_for_grid(src: Tuple[int, int], tgt_width: int, tgt_he
 
 
 def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Interleaved-pair RoPE in float32, returned in x's dtype.
+    """Interleaved-pair RoPE in float32 (float64 for float64 x), returned in
+    x's dtype.
 
     x: [..., D]; cos/sin broadcast against x (e.g. [S, 1, D] for
     [B, S, H, D] activations). out = x*cos + rotate_pairs(x)*sin with
     rotate_pairs((x0, x1)) = (-x1, x0).
     """
-    x32 = x.float()
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     xr = x32.unflatten(-1, (-1, 2))
     x_rot = torch.stack([-xr[..., 1], xr[..., 0]], dim=-1).flatten(-2)
     return (x32 * cos + x_rot * sin).to(x.dtype)
