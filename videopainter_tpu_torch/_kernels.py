@@ -24,7 +24,11 @@ flags, so an edited source rebuilds and an unchanged one is reused. Nothing
 is built or loaded when a module is imported.
 
 `LAUNCHES` holds one plain integer per kernel; a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else. Beside it, `PADDING` counts the work
+the denoise loop spends on padding: the latent frames the pipeline pads so
+that a CogVideoX 1.5 clip's frames pair up into patches, and the video
+tokens whose patch holds one, over each step's CFG batch
+(`pipelines/common.py`). `reset_launches` zeroes both.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
                             "connected_components": 0, "qk_norm_rope": 0,
                             "qk_norm_rope_bwd": 0}
+PADDING: Dict[str, int] = {"latent_frames": 0, "tokens": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()            # guards _SOURCE_LOCKS
@@ -58,8 +63,9 @@ _SOURCE_LOCKS: Dict[str, threading.Lock] = {}   # one build per source at a time
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PADDING):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -48,6 +48,12 @@ class TransformerConfig:
     use_rotary_positional_embeddings: bool = False
     use_learned_positional_embeddings: bool = False
     id_pool_resample_learnable: bool = False
+    # CogVideoX 1.5: spatio-temporal patches of patch_size_t latent frames
+    # (None: the 1.0 per-frame patches), the ofs embedding's width (None:
+    # none) and whether the patch projection has a bias
+    patch_size_t: Optional[int] = None
+    ofs_embed_dim: Optional[int] = None
+    patch_bias: bool = True
 
     @property
     def inner_dim(self) -> int:
@@ -71,6 +77,20 @@ class TransformerConfig:
         return cls.cogvideox_5b(**kw)
 
     @classmethod
+    def cogvideox15_5b_i2v(cls, **kw) -> "TransformerConfig":
+        """THUDM/CogVideoX1.5-5B-I2V: 5b-I2V's widths with 2x2x2 patches, no
+        position table (the RoPE grid is capped at sample / patch_size) and
+        the ofs embedding."""
+        kw.setdefault("patch_size_t", 2)
+        kw.setdefault("patch_bias", False)
+        kw.setdefault("ofs_embed_dim", 512)
+        kw.setdefault("sample_frames", 81)
+        kw.setdefault("sample_height", 300)
+        kw.setdefault("sample_width", 300)
+        kw.setdefault("use_learned_positional_embeddings", False)
+        return cls.cogvideox_5b_i2v(**kw)
+
+    @classmethod
     def tiny(cls, **kw) -> "TransformerConfig":
         """Small config for tests: same structure, tiny dims."""
         kw.setdefault("num_attention_heads", 2)
@@ -90,7 +110,22 @@ class TransformerConfig:
         return _from_dict(cls, d)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The config's keys; the 1.5 keys only where they differ from 1.0,
+        so a 1.0 config writes the keys its published config.json holds."""
+        d = dataclasses.asdict(self)
+        for k, v in (("patch_size_t", None), ("ofs_embed_dim", None), ("patch_bias", True)):
+            if d[k] == v:
+                del d[k]
+        return d
+
+
+def refuse_3d_patches(cfg: TransformerConfig, what: str) -> None:
+    """Raise NotImplementedError where `what` has only the 1.0 per-frame
+    patch path and `cfg` has spatio-temporal patches (CogVideoX 1.5)."""
+    if getattr(cfg, "patch_size_t", None) is not None:
+        raise NotImplementedError(
+            f"{what} supports only per-frame patches (CogVideoX 1.0); this model has "
+            f"patch_size_t={cfg.patch_size_t} (CogVideoX 1.5)")
 
 
 @dataclass(frozen=True)

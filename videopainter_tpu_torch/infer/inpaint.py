@@ -56,7 +56,7 @@ def build_pipeline(model_path: str, inpainting_branch: Optional[str],
     `device` (CUDA unless given). With no branch, the backbone-only SFT
     any-length pipeline (the reference's eval_inpainting_wo_branch.py:147)."""
     from ..config import (BranchConfig, SchedulerConfig, TransformerConfig, VAEConfig,
-                          load_config)
+                          load_config, refuse_3d_patches)
     from ..convert import load_safetensors_dir as load_dir
     from ..models import AutoencoderKLCogVideoX, CogVideoXBranch, CogVideoXTransformer3D
     from ..models.lora import LORA_ALPHA, LORA_RANK, convert_peft_lora_state_dict, merge_lora
@@ -67,6 +67,8 @@ def build_pipeline(model_path: str, inpainting_branch: Optional[str],
     dev = resolve_device(device)
     dtype = DTYPES[dtype_str]
     tcfg = load_config(os.path.join(model_path, "transformer", "config.json"), TransformerConfig)
+    # the CLI runs the any-length pipeline: refuse a 1.5 model before any weight loads
+    refuse_3d_patches(tcfg, "the inference CLI (the any-length pipeline)")
     if id_adapter:
         tcfg = TransformerConfig.from_dict({**tcfg.to_dict(), "id_pool_resample_learnable": True})
     vcfg = load_config(os.path.join(model_path, "vae", "config.json"), VAEConfig)

@@ -8,6 +8,10 @@ scaled by `conditioning_scale`. `norm_final`, `norm_out`, `proj_out` and
 `branch_x_embedder` exist in the reference state dict but are unused by the
 forward; they are kept so the state dict round-trips.
 
+A CogVideoX 1.5 branch (`cfg.patch_size_t`) patches q latent frames at once
+and holds its own `ofs_embedding`, as it holds `time_embedding`; its forward
+takes the `ofs` the DiT takes.
+
 With `seq_axis` / `ring_mesh` the blocks run sequence-parallel as the DiT's
 do (`parallel/sequence.py`); the features of every rank are gathered before
 they are returned, so the output is whole on every rank.
@@ -38,13 +42,17 @@ class CogVideoXBranch(_CogVideoXBase):
     def init_from_transformer(self, transformer: CogVideoXTransformer3D) -> "CogVideoXBranch":
         """Copy the backbone's weights into the branch (reference
         from_transformer): the patch-embed kernel's latent slots duplicated,
-        the mask slot zeroed, text projection, time embedding and the first N
-        blocks copied; the per-layer projections zeroed."""
+        the mask slot zeroed, text projection, time (and ofs) embedding and the
+        first N blocks copied; the per-layer projections zeroed."""
         cfg = self.cfg
         tcfg: TransformerConfig = transformer.cfg
         c_in = cfg.in_channels
         bb = transformer.patch_embed.proj.weight  # [O, C_bb, p, p]
+        if cfg.patch_size_t is not None:   # [O, C q p p] -> [O, C, q p p]
+            bb = bb.unflatten(1, (tcfg.in_channels, -1))
         new = torch.zeros_like(self.patch_embed.proj.weight)
+        if cfg.patch_size_t is not None:
+            new = new.unflatten(1, (cfg.patch_in_channels, -1))
         if cfg.patch_in_channels == 2 * c_in + 1:
             # T2V-style: both latent slots get the full kernel
             new[:, :c_in] = bb
@@ -58,10 +66,13 @@ class CogVideoXBranch(_CogVideoXBase):
             raise ValueError(f"in_channels {c_in} not supported")
         if tcfg.in_channels != bb.shape[1]:
             raise ValueError("backbone patch embed does not match its config")
-        self.patch_embed.proj.weight.copy_(new)
-        self.patch_embed.proj.bias.copy_(transformer.patch_embed.proj.bias)
+        self.patch_embed.proj.weight.copy_(new.reshape(self.patch_embed.proj.weight.shape))
+        if self.patch_embed.proj.bias is not None:
+            self.patch_embed.proj.bias.copy_(transformer.patch_embed.proj.bias)
         self.patch_embed.text_proj.load_state_dict(transformer.patch_embed.text_proj.state_dict())
         self.time_embedding.load_state_dict(transformer.time_embedding.state_dict())
+        if cfg.ofs_embed_dim is not None:
+            self.ofs_embedding.load_state_dict(transformer.ofs_embedding.state_dict())
         for i, blk in enumerate(self.transformer_blocks):
             blk.load_state_dict(transformer.transformer_blocks[i].state_dict())
         for lin in self.branch_blocks:
@@ -76,6 +87,7 @@ class CogVideoXBranch(_CogVideoXBase):
         branch_cond: torch.Tensor,              # [B, T, H, W, C_lat+1] masked latents ‖ mask
         timestep,
         *,
+        ofs=None,                               # CogVideoX 1.5's ofs, as the DiT's
         rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         conditioning_scale: float = 1.0,
         use_flash: Union[bool, str] = False,
@@ -92,8 +104,8 @@ class CogVideoXBranch(_CogVideoXBase):
             raise ValueError("calibrate=True requires remat=False (a checkpoint reruns the "
                              "block and records its amaxes twice)")
         x = torch.cat([hidden_states, branch_cond], dim=-1)
-        emb, h, enc_h, _ = self._embed(x, encoder_hidden_states, timestep)
-        sp = seq_shard(seq_axis, ring_mesh, h.shape[1])
+        emb, h, enc_h, _ = self._embed(x, encoder_hidden_states, timestep, ofs=ofs)
+        sp = seq_shard(seq_axis, ring_mesh, h.shape[1], self.cfg.patch_size_t)
         if sp is not None:   # this rank's video tokens
             h = sp.take(h, 1)
             rope = None if rope is None else (sp.take(rope[0], 0), sp.take(rope[1], 0))

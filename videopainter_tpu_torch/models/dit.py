@@ -6,6 +6,17 @@ branch-feature injection with optional mask gating. The blocks are an
 `nn.ModuleList` run by a Python loop; parameter names are the diffusers
 names, so a reference state dict loads with `load_state_dict`.
 
+CogVideoX 1.5 (`cfg.patch_size_t`) patches q latent frames at once
+(`ops/patch_embed.py`): its frame count must be a multiple of q (the
+pipeline pads it), its output head projects each token back to its q x p x p
+cells, and an `ofs` embedding (a second sinusoid-and-MLP, `ofs_embedding`,
+from the `ofs` argument) is added to the time embedding. The patch embed,
+with the text projection and the time and ofs embeddings, and the output
+head run inside the `dit.patch` span (`utils/profiling.py`). The any-length
+state paths (captures, previous-window states, ID resample) and sequence
+parallelism take per-frame patches only and raise NotImplementedError on a
+1.5 model.
+
 The JAX package pads the joint sequence once to the flash block multiple (a
 Mosaic out-of-bounds rule); the port's kernels mask ragged tails themselves,
 so the sequence stays at its true length.
@@ -53,7 +64,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import TransformerConfig
+from ..config import TransformerConfig, refuse_3d_patches
 from ..ops.attention import Attention
 from ..ops.basic import LayerNorm, Linear, calibration, init_random_
 from ..ops.embeddings import TimestepEmbedding, timestep_embedding
@@ -62,6 +73,7 @@ from ..ops.norms import AdaLayerNorm, LayerNormZero
 from ..ops.patch_embed import PatchEmbed, unpatchify
 from ..ops.sincos import get_3d_sincos_pos_embed
 from ..parallel.sequence import seq_shard
+from ..utils.profiling import annotate
 
 
 def crop_pos_embedding(pos, cfg, text_len: int, num_frames: int,
@@ -204,7 +216,8 @@ class _CogVideoXBase(nn.Module):
         self.cfg = cfg
         d = cfg.inner_dim
         self.patch_embed = PatchEmbed(patch_size=cfg.patch_size, in_channels=patch_in_channels,
-                                      embed_dim=d, text_embed_dim=cfg.text_embed_dim, **kw)
+                                      embed_dim=d, text_embed_dim=cfg.text_embed_dim,
+                                      patch_size_t=cfg.patch_size_t, bias=cfg.patch_bias, **kw)
         if not cfg.use_rotary_positional_embeddings or cfg.use_learned_positional_embeddings:
             pos = torch.from_numpy(positional_embeddings(cfg))
             # persistent only when learned, as in the reference state dict
@@ -212,13 +225,16 @@ class _CogVideoXBase(nn.Module):
                 "pos_embedding", pos.to(device=device, dtype=dtype or torch.float32),
                 persistent=cfg.use_learned_positional_embeddings)
         self.time_embedding = TimestepEmbedding(d, cfg.time_embed_dim, **kw)
+        if cfg.ofs_embed_dim is not None:
+            self.ofs_embedding = TimestepEmbedding(cfg.ofs_embed_dim, cfg.ofs_embed_dim, **kw)
         self.transformer_blocks = nn.ModuleList(
             [CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.norm_final = LayerNorm(d, eps=cfg.norm_eps,
                                     elementwise_affine=cfg.norm_elementwise_affine, **kw)
         self.norm_out = AdaLayerNorm(cfg.time_embed_dim, 2 * d, eps=cfg.norm_eps,
                                      elementwise_affine=cfg.norm_elementwise_affine, **kw)
-        self.proj_out = Linear(d, cfg.patch_size * cfg.patch_size * cfg.out_channels, **kw)
+        self.proj_out = Linear(d, cfg.patch_size * cfg.patch_size * (cfg.patch_size_t or 1)
+                               * cfg.out_channels, **kw)
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator):
@@ -237,22 +253,34 @@ class _CogVideoXBase(nn.Module):
             pe.copy_(torch.from_numpy(positional_embeddings(self.cfg)).to(pe.dtype))
         return self
 
-    def _embed(self, hidden_states, encoder_hidden_states, timestep, masks=None):
-        cfg = self.cfg
-        b, num_frames, height, width, _ = hidden_states.shape
-        timestep = torch.as_tensor(timestep, device=hidden_states.device)
-        if timestep.ndim == 0:
-            timestep = timestep.expand(b)
-        t_emb = timestep_embedding(timestep, cfg.inner_dim,
-                                   flip_sin_to_cos=cfg.flip_sin_to_cos,
-                                   downscale_freq_shift=cfg.freq_shift)
-        emb = self.time_embedding(t_emb.to(hidden_states.dtype))
-        pos = crop_pos_embedding(getattr(self.patch_embed, "pos_embedding", None), cfg,
-                                 encoder_hidden_states.shape[1], num_frames, height, width)
-        embeds, patch_mask = self.patch_embed(encoder_hidden_states, hidden_states,
-                                              masks=masks, pos_embedding=pos)
-        text_len = encoder_hidden_states.shape[1]
-        return emb, embeds[:, text_len:], embeds[:, :text_len], patch_mask
+    def _sinusoid(self, t, dim: int, b: int, device) -> torch.Tensor:
+        t = torch.as_tensor(t, device=device)
+        if t.ndim == 0:
+            t = t.expand(b)
+        return timestep_embedding(t, dim, flip_sin_to_cos=self.cfg.flip_sin_to_cos,
+                                  downscale_freq_shift=self.cfg.freq_shift)
+
+    def _embed(self, hidden_states, encoder_hidden_states, timestep, masks=None, ofs=None):
+        with annotate("dit.patch"):
+            cfg = self.cfg
+            b, num_frames, height, width, _ = hidden_states.shape
+            dev, dtype = hidden_states.device, hidden_states.dtype
+            t_emb = self._sinusoid(timestep, cfg.inner_dim, b, dev)
+            emb = self.time_embedding(t_emb.to(dtype))
+            if cfg.ofs_embed_dim is not None:
+                if ofs is None:
+                    raise ValueError("this model has an ofs embedding (CogVideoX 1.5): pass ofs")
+                emb = emb + self.ofs_embedding(
+                    self._sinusoid(ofs, cfg.ofs_embed_dim, b, dev).to(dtype))
+            if cfg.patch_size_t is not None and num_frames % cfg.patch_size_t:
+                raise ValueError(f"{num_frames} latent frames do not pair up into patches of "
+                                 f"{cfg.patch_size_t} frames: pad them (the pipeline does)")
+            pos = crop_pos_embedding(getattr(self.patch_embed, "pos_embedding", None), cfg,
+                                     encoder_hidden_states.shape[1], num_frames, height, width)
+            embeds, patch_mask = self.patch_embed(encoder_hidden_states, hidden_states,
+                                                  masks=masks, pos_embedding=pos)
+            text_len = encoder_hidden_states.shape[1]
+            return emb, embeds[:, text_len:], embeds[:, :text_len], patch_mask
 
 
 class CogVideoXTransformer3D(_CogVideoXBase):
@@ -269,6 +297,7 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         encoder_hidden_states: torch.Tensor,     # [B, S_text, text_dim]
         timestep,                                # [B] or scalar
         *,
+        ofs=None,                                # [B] or scalar: CogVideoX 1.5's ofs
         rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         branch_block_samples: Optional[torch.Tensor] = None,  # [n_branch, B, S_vid, D]
         branch_block_masks: Optional[torch.Tensor] = None,    # [B, T_lat, H, W] float
@@ -308,6 +337,9 @@ class CogVideoXTransformer3D(_CogVideoXBase):
             # recorded amaxes
             raise ValueError("calibrate=True requires the plain forward path "
                              "(no captures, variants, or remat)")
+        if return_hidden_states or prev_hidden_states is not None or id_pool_resample:
+            refuse_3d_patches(cfg, "the any-length path (captures, previous-window states, "
+                                   "ID resample)")
         if prev_hidden_states is not None and prev_clip_weight is None:
             # the attention variant keys on both; without a weight the prev
             # states would be silently ignored
@@ -315,10 +347,10 @@ class CogVideoXTransformer3D(_CogVideoXBase):
         b, num_frames, height, width, _ = hidden_states.shape
         masks = self_guidance_masks if self_guidance_masks is not None else branch_block_masks
         emb, h, enc_h, patch_mask = self._embed(hidden_states, encoder_hidden_states,
-                                                timestep, masks=masks)
+                                                timestep, masks=masks, ofs=ofs)
         text_len, s_vid = enc_h.shape[1], h.shape[1]
         s_joint = text_len + s_vid
-        sp = seq_shard(seq_axis, ring_mesh, s_vid)
+        sp = seq_shard(seq_axis, ring_mesh, s_vid, cfg.patch_size_t)
 
         # resample mask over the joint sequence
         resample_mask = None
@@ -443,16 +475,18 @@ class CogVideoXTransformer3D(_CogVideoXBase):
             else:
                 hs_list = torch.stack(captures)
 
-        # 2B norms the video tokens, 5B the joint sequence; the norm is per
-        # token, so both are the norm of the video slice
-        h = self.norm_final(h)
-        h = self.norm_out(h, emb)
-        h = self.proj_out(h)
-        if sp is not None:
-            # per-token ops above, so gathering their output is exact; the loss
-            # downstream is then replicated and each rank back-propagates its rows
-            h = sp.gather(h, 1)
+        with annotate("dit.patch"):
+            # 2B norms the video tokens, 5B the joint sequence; the norm is per
+            # token, so both are the norm of the video slice
+            h = self.norm_final(h)
+            h = self.norm_out(h, emb)
+            h = self.proj_out(h)
+            if sp is not None:
+                # per-token ops above, so gathering their output is exact; the loss
+                # downstream is then replicated and each rank back-propagates its rows
+                h = sp.gather(h, 1)
+            sample = unpatchify(h, num_frames, height, width, cfg.patch_size, cfg.patch_size_t)
         return TransformerOutput(
-            sample=unpatchify(h, num_frames, height, width, cfg.patch_size),
+            sample=sample,
             hidden_states_list=hs_list, resample_mask=resample_mask,
             calib_amax=torch.stack(amaxes) if calibrate else None)

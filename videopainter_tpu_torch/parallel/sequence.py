@@ -12,7 +12,9 @@ outputs are whole tensors as in JAX. Attention sees the other shards by
 all-gathering K and V (`gather_kv`), or through the ring
 (`ring_attention.py`) when `ring_mesh` is given; the ring needs equal
 shards, so there a video length the ring size does not divide raises
-`ValueError`, as the JAX `shard_map` does.
+`ValueError`, as the JAX `shard_map` does. Shards are cut on the per-frame
+patch grid: a CogVideoX 1.5 model (spatio-temporal patches) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,13 +62,18 @@ class SeqShard:
         return vid if text_len == 0 else torch.cat([x[:, :text_len], vid], dim=1)
 
 
-def seq_shard(seq_axis: Optional[str], ring_mesh, s_vid: int) -> Optional[SeqShard]:
+def seq_shard(seq_axis: Optional[str], ring_mesh, s_vid: int,
+              patch_size_t: Optional[int] = None) -> Optional[SeqShard]:
     """The SeqShard a model's `seq_axis` / `ring_mesh` arguments name for
     `s_vid` video tokens, or None without sequence parallelism. `ring_mesh`
     alone rings over "seq"; `seq_axis` alone needs a mesh entered with
-    `use_mesh`."""
+    `use_mesh`. `patch_size_t`: the model's (CogVideoX 1.5 raises)."""
     if seq_axis is None and ring_mesh is None:
         return None
+    if patch_size_t is not None:
+        raise NotImplementedError(
+            "sequence parallelism supports only per-frame patches (CogVideoX 1.0); this "
+            f"model has patch_size_t={patch_size_t} (CogVideoX 1.5)")
     axis = seq_axis or AXES.seq
     mesh = ring_mesh if ring_mesh is not None else current_mesh()
     if mesh is None:

@@ -25,6 +25,12 @@ For the any-length pipeline the loop takes the previous window's state
 indices of a compressed capture) into every model pass, and captures this
 window's per-layer states at the final step only; `capture_token_indices`
 picks the masked-region tokens a compressed capture keeps.
+
+CogVideoX 1.5 (`patch_size_t`): RoPE positions lie on the integer latent
+grid (diffusers' `grid_type="slice"`), every model pass gets the I2V
+pipeline's `ofs` (`OFS`), and the latent frames the pipeline padded so that
+they pair up (`DenoiseInputs.pad_frames`) are counted a step in
+`_kernels.PADDING`.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..config import TransformerConfig
 from ..models.dit import TransformerOutput
 from ..models.vae import nearest_resize3d_ndhwc
@@ -43,6 +50,9 @@ from ..ops.patch_embed import pool_patch_mask
 from ..ops.rope import get_3d_rotary_pos_embed, get_resize_crop_region_for_grid
 from ..schedulers import CogVideoXDPMScheduler
 from ..utils.profiling import annotate
+
+
+OFS = 2.0   # the ofs the CogVideoX 1.5 I2V pipeline passes for every sample
 
 
 def get_strength_timesteps(timesteps: np.ndarray, num_inference_steps: int,
@@ -58,14 +68,26 @@ def prepare_rope(cfg: TransformerConfig, height: int, width: int,
                  base_height: int = 480, base_width: int = 720, device=None):
     """Rotary tables (cos, sin) [S_vid, head_dim] float32 for the video grid.
 
-    The reference hardcodes the aspect-ratio base grid to 720x480 pixels,
-    independent of the model's sample dims; RoPE positions are rescaled onto it.
+    CogVideoX 1.0: the reference hardcodes the aspect-ratio base grid to
+    720x480 pixels, independent of the model's sample dims; RoPE positions
+    are rescaled onto it. CogVideoX 1.5 (`patch_size_t` = q): integer
+    positions t < T/q, h < H/p, w < W/p, the grid capped at the sample dims
+    over p (diffusers' `grid_type="slice"`).
     """
     if not cfg.use_rotary_positional_embeddings:
         return None
     p = cfg.patch_size
     grid_h = height // (vae_spatial * p)
     grid_w = width // (vae_spatial * p)
+    q = getattr(cfg, "patch_size_t", None)
+    if q is not None:
+        cap_h, cap_w = cfg.sample_height // p, cfg.sample_width // p
+        if grid_h > cap_h or grid_w > cap_w:
+            raise ValueError(f"the {grid_h}x{grid_w} patch grid exceeds the RoPE grid "
+                             f"{cap_h}x{cap_w} (sample_height, sample_width over patch_size)")
+        cos, sin = get_3d_rotary_pos_embed(cfg.attention_head_dim, ((0, 0), (grid_h, grid_w)),
+                                           (grid_h, grid_w), -(-num_latent_frames // q))
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
     base_w = base_width // (vae_spatial * p)
     base_h = base_height // (vae_spatial * p)
     crops = get_resize_crop_region_for_grid((grid_h, grid_w), base_w, base_h)
@@ -130,6 +152,8 @@ class DenoiseInputs(NamedTuple):
     dpm_noises: Optional[torch.Tensor] = None  # [S, B, T, h, w, C] injected SDE noise
     capture_indices: Optional[torch.Tensor] = None  # int32 [B, M]: compressed capture
                                            # keeps only these joint-sequence positions
+    pad_frames: int = 0                    # leading latent frames padded so that the
+                                           # frames pair up into patches (CogVideoX 1.5)
 
 
 def uniform_skip_steps(num_steps: int, start: int, end: int,
@@ -252,6 +276,8 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         timestep = torch.full((latent_model_input.shape[0],), int(coeffs.timesteps[i]),
                               dtype=torch.long, device=latents.device)
         kw: Dict[str, Any] = {}
+        ofs = {} if tcfg.ofs_embed_dim is None else {"ofs": OFS}
+        kw.update(ofs)
         if prev_state is not None:
             kw.update({k: prev_state[k] for k in ("prev_hidden_states", "prev_clip_weight",
                                                   "prev_resample_mask")})
@@ -266,7 +292,7 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             branch_cond = torch.cat([masked_lat, mask[..., None]], dim=-1)
             branch_samples = branch(latent_video_input, embeds, branch_cond, timestep,
                                     rope=rope, conditioning_scale=dcfg.conditioning_scale,
-                                    use_flash=dcfg.use_flash, **par)
+                                    use_flash=dcfg.use_flash, **ofs, **par)
             return transformer(latent_model_input, embeds, timestep, rope=rope,
                                branch_block_samples=branch_samples,
                                branch_block_masks=mask if dcfg.mask_add else None,
@@ -286,7 +312,7 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             if i2v:
                 noised = torch.cat([noised, image_latents], dim=-1)
             g = transformer(noised, embeds, timestep, rope=rope, return_hidden_states=True,
-                            use_flash=dcfg.use_flash, **par)
+                            use_flash=dcfg.use_flash, **ofs, **par)
             sg = g.hidden_states_list[:, :, embeds.shape[1]:]
             del g
             return transformer(latent_model_input, embeds, timestep, rope=rope,
@@ -369,6 +395,16 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
             latents = latents.to(dtype)
         return latents, x0
 
+    def count_padding(inputs: DenoiseInputs):
+        """The padded latent frames a model pass sees, and the video tokens
+        whose patch holds one, over its CFG batch."""
+        tcfg = transformer.cfg
+        q, p = tcfg.patch_size_t or 1, tcfg.patch_size
+        _, _, h, w, _ = inputs.latents.shape
+        rows = inputs.latents.shape[0] * (2 if dcfg.do_cfg else 1)
+        _kernels.PADDING["latent_frames"] += rows * inputs.pad_frames
+        _kernels.PADDING["tokens"] += rows * -(-inputs.pad_frames // q) * (h // p) * (w // p)
+
     @torch.no_grad()
     def denoise(inputs: DenoiseInputs, rope, generator: Optional[torch.Generator] = None,
                 prev_state: Optional[Dict[str, Any]] = None):
@@ -377,6 +413,8 @@ def make_denoise_fn(transformer, branch, scheduler, dcfg: DenoiseConfig,
         for i in range(S):
             with annotate("denoise.step"):
                 if run[i]:
+                    if inputs.pad_frames:
+                        count_padding(inputs)
                     capture = dcfg.capture_hidden_states and i == S - 1
                     out = model_step(inputs, rope, latents, i, prev_state, capture)
                     pred = out.sample.float()

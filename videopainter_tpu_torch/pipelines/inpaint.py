@@ -10,6 +10,16 @@ Counterpart of `videopainter_tpu/pipelines/inpaint.py`
  - strength-sliced timesteps, pure-noise or noised-video init;
  - the denoise loop (pipelines/common.py), then one VAE decode.
 
+CogVideoX 1.5 (a DiT with `patch_size_t` = q) takes clips up to its
+`sample_frames` (81). When the T0 latent frames do not pair up, k = q - T0
+mod q frames are padded at the front, as diffusers' `additional_frames`: the
+noise is drawn at T0 + k frames, the masked-video and clean latents and the
+latent mask prepend k copies of their frame 0, and the image latent sits at
+frame 0 with zeros after it; the first k latent frames are dropped before
+the decode (`DenoiseInputs.pad_frames`). A VAE with `invert_scale_latents`
+(1.5's) scales the image latent by 1 / scaling_factor, the published 1.5
+I2V rule; the video streams by scaling_factor, as 1.0's.
+
 A prompt is encoded by the pipeline's `text_encoder` (T5, see
 `models/text_encoder.py`), or its embeddings are passed in (`prompt_embeds`,
 which take precedence). Runs on CUDA unless `device="cpu"` is passed.
@@ -80,9 +90,11 @@ class CogVideoXI2VDualInpaintPipeline:
         return torch.cat([negative_prompt_embeds.to(self.device),
                           prompt_embeds.to(self.device)], dim=0)
 
-    def _vae_encode(self, x, generator, sample_mode):
+    def _vae_encode(self, x, generator, sample_mode, image: bool = False):
         dist = self.vae.encode(x)
         lat = dist.sample(generator) if sample_mode == "sample" else dist.mode()
+        if image and self.vae.cfg.invert_scale_latents:
+            return lat / self.vae.cfg.scaling_factor
         return lat * self.vae.cfg.scaling_factor
 
     @torch.no_grad()
@@ -100,9 +112,15 @@ class CogVideoXI2VDualInpaintPipeline:
         init_noise: Optional[torch.Tensor] = None,
         dtype=torch.float32,
     ) -> DenoiseInputs:
-        """VAE prep. Returns DenoiseInputs without the prompt embeddings."""
+        """VAE prep. Returns DenoiseInputs without the prompt embeddings.
+        With a CogVideoX 1.5 DiT, every latent stream (and `init_noise`) has
+        the padded frame count (the module note)."""
         b, t, height, width, _ = video.shape
         t_lat = (t - 1) // self.vae_scale_factor_temporal + 1
+        q = self.transformer.cfg.patch_size_t
+        k = 0 if q is None else -t_lat % q
+        pad = (lambda x: x) if not k else (
+            lambda x: torch.cat([x[:, :1].expand(-1, k, *x.shape[2:]), x], dim=1))
         h_lat = height // self.vae_scale_factor_spatial
         w_lat = width // self.vae_scale_factor_spatial
         c_lat = self.vae.cfg.latent_channels
@@ -116,21 +134,21 @@ class CogVideoXI2VDualInpaintPipeline:
             image_latents = image.to(dev, dtype)   # already a latent
         else:
             image_latents = self._vae_encode(image.to(dev, dtype)[:, None], generator,
-                                             vae_sample_mode).to(dtype)
-        pad = torch.zeros((b, t_lat - 1, h_lat, w_lat, c_lat), dtype=dtype, device=dev)
-        image_latents = torch.cat([image_latents, pad], dim=1)
+                                             vae_sample_mode, image=True).to(dtype)
+        zeros = torch.zeros((b, t_lat + k - 1, h_lat, w_lat, c_lat), dtype=dtype, device=dev)
+        image_latents = torch.cat([image_latents, zeros], dim=1)
 
         keep = (masks < 0.5) if not mask_background else (masks >= 0.5)
         masked_video = video * keep[..., None].to(video.dtype)
-        masked_video_latents = self._vae_encode(masked_video, generator,
-                                                vae_sample_mode).to(dtype)
-        mask_lat = resize_mask_to_latent(masks, t_lat, h_lat, w_lat)
-        video_latents = self._vae_encode(video, generator, vae_sample_mode).to(dtype)
+        masked_video_latents = pad(self._vae_encode(masked_video, generator,
+                                                    vae_sample_mode).to(dtype))
+        mask_lat = pad(resize_mask_to_latent(masks, t_lat, h_lat, w_lat))
+        video_latents = pad(self._vae_encode(video, generator, vae_sample_mode).to(dtype))
 
         if init_noise is not None:
             noise = init_noise.to(dev, dtype)
         else:
-            noise = torch.randn((b, t_lat, h_lat, w_lat, c_lat), generator=generator,
+            noise = torch.randn((b, t_lat + k, h_lat, w_lat, c_lat), generator=generator,
                                 dtype=torch.float32, device=dev).to(dtype)
         if strength >= 1.0:
             latents = noise * self.scheduler.init_noise_sigma
@@ -142,7 +160,7 @@ class CogVideoXI2VDualInpaintPipeline:
         return DenoiseInputs(latents=latents, image_latents=image_latents,
                              masked_video_latents=masked_video_latents,
                              mask=mask_lat.to(dtype), prompt_embeds=None, noise=noise,
-                             video_latents=video_latents)
+                             video_latents=video_latents, pad_frames=k)
 
     @torch.no_grad()
     def __call__(
@@ -190,8 +208,10 @@ class CogVideoXI2VDualInpaintPipeline:
         which also routes attention through the ring). Run on every rank of
         the mesh; each returns the whole video.
         """
-        if video.shape[1] > 49:
-            raise ValueError(f"num_frames {video.shape[1]} > 49; longer videos need "
+        tcfg = self.transformer.cfg
+        max_frames = 49 if tcfg.patch_size_t is None else tcfg.sample_frames
+        if video.shape[1] > max_frames:
+            raise ValueError(f"num_frames {video.shape[1]} > {max_frames}; longer videos need "
                              "the any-length pipeline")
         do_cfg = guidance_scale > 1.0
         dev = self.device
@@ -235,6 +255,7 @@ class CogVideoXI2VDualInpaintPipeline:
 
         if output_type == "latent":
             return latents
+        latents = latents[:, inputs.pad_frames:]
         video_out = self.vae.decode(latents / self.vae.cfg.scaling_factor)
         video_out = torch.clamp(video_out, -1, 1)
         if output_type == "np":

@@ -22,7 +22,9 @@ Counterpart of `videopainter_tpu/pipelines/inpaint_anyl.py`
    given, i.e. when the VAE shares the card with the resident DiT).
 
 The window loop is host-level Python; every window runs the same denoise
-loop.
+loop. Windows, captures and the ID resample are cut on the per-frame patch
+grid: a CogVideoX 1.5 DiT (spatio-temporal patches) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..config import refuse_3d_patches
 from .common import (DenoiseConfig, capture_token_indices, get_strength_timesteps,
                      make_denoise_fn, prepare_rope)
 from .inpaint import CogVideoXI2VDualInpaintPipeline
@@ -91,6 +94,7 @@ class CogVideoXI2VDualInpaintAnyLPipeline(CogVideoXI2VDualInpaintPipeline):
         """Returns the decoded video [B, T_total, H, W, 3] in [-1, 1] (numpy
         for output_type="np", a tensor on the pipeline's device for "pt", the
         averaged latents for "latent")."""
+        refuse_3d_patches(self.transformer.cfg, "the any-length pipeline")
         dev = self.device
         b, total_frames = video.shape[0], video.shape[1]
         stride = stride if stride is not None else num_frames

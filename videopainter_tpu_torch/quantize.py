@@ -6,7 +6,8 @@ transformer block become `ops.basic.Int8Linear`: per-out-channel weight
 scales, dynamic per-token activation scales (or static calibrated ones), an
 int32 product. Norms, modulation, patch / time embeddings and `proj_out`
 keep their precision. Approximate by design; the reference has no quantized
-path.
+path. Per-frame patch models only: a CogVideoX 1.5 model raises
+NotImplementedError.
 
 Sites carry the JAX package's names (`to_q`, `to_k`, `to_v`, `to_out`,
 `proj_in`, `proj_out`, and `to_qkv` on a model whose projections were fused
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .config import refuse_3d_patches
 from .ops.basic import Int8Linear, quantize_linear_int8
 
 # site name -> path of the linear inside a CogVideoXBlock, in the forward's call
@@ -61,6 +63,7 @@ def quantize_transformer_int8(model: nn.Module, *, free_source: bool = False) ->
     its int8 copy lands, so a full-size model is never held twice; otherwise
     `model` is left as it is and a quantized deep copy is returned.
     """
+    refuse_3d_patches(getattr(model, "cfg", None), "W8A8 (quantize_transformer_int8)")
     if not free_source:
         model = copy.deepcopy(model)
     with torch.no_grad():

@@ -43,6 +43,9 @@ summed over `seq` and averaged over `data` (`comm.py`'s rule), before the
 clip; the optimizer's state is split ZeRO-2-style by
 `init_branch_train_state(..., mesh=)` (`optim.Zero`). The metrics are
 averaged over `data`.
+
+Training covers per-frame patch models (CogVideoX 1.0): a CogVideoX 1.5
+backbone raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..config import refuse_3d_patches
 from ..models.lora import attach_lora
 from ..models.vae import DiagonalGaussian
 from ..parallel import comm
@@ -350,6 +354,7 @@ def make_branch_train_step(transformer, branch, vae, scheduler, optimizer,
     loss / inpainting_loss / total_loss / gradient norms as 0-d tensors.
     `mesh` / `ring_mesh` / `cfg.seq_axis`: see the module note.
     """
+    refuse_3d_patches(transformer.cfg, "branch training (make_branch_train_step)")
     transformer.requires_grad_(False)
     vae.requires_grad_(False)
     mesh = _step_mesh(mesh, ring_mesh)

@@ -18,6 +18,9 @@ records nothing. The spans the port opens:
    modulation linear and the float32 modulation;
  - `attn`: one `joint_attention` call, from the text / video join through
    the projections, QK norms, RoPE, the kernel(s) and `to_out`;
+ - `dit.patch`: a DiT or branch call's patch embed (text projection,
+   patchify and its projection, the time and ofs embeddings) and, in the
+   DiT, its output head (`norm_final`, `norm_out`, `proj_out`, unpatchify);
  - `train.step`: one training step, the VAE prep and the gradient step;
  - `train.backward`: the backward, with the checkpoints' recompute (which
    reopens `dit.adaln` and `attn` inside it);
