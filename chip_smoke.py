@@ -37,7 +37,11 @@ Phases (each fails the run loudly, exit code != 0):
     tables. Attention's prep (csrc/qk_norm_rope.cu, no Pallas counterpart):
     the forward against its plain version at the served shape, the backward
     against fp32 autograd at the training shape, both timed beside their
-    bytes bounds and the plain version;
+    bytes bounds and the plain version. The VAE's GroupNorm + SiLU
+    (csrc/group_norm_silu.cu, no Pallas counterpart): four encoder shapes,
+    one of them the channel / frame view, against the plain version and
+    float64 statistics, timed beside the bytes bound, the plain version and
+    F.group_norm + F.silu;
  2. the single-clip path at full CogVideoX-5b-I2V width from a prompt: T5-
     v1.1-XXL at its published width (seeded random weights, a word-hash
     tokenizer) encodes it and the empty negative prompt, then the flagship
@@ -816,6 +820,140 @@ def phase_qk_prep(torch, kernels):
             "bound_ms_train_fwd": fwd_stats_bound_ms, "train_bound_ms_no_stats": train_bound_ms,
             "ms_bwd": bwd_ms, "bound_ms_bwd": bwd_bound_ms, "plain_ms_bwd": plain_bwd_ms,
             "bwd_rel_l2": errs}
+
+
+GN_SHAPES = [   # (name, [B, C, T, H, W], groups, as `_per_frame_conv2d`'s channel / frame view)
+    ("down0", (1, 128, 9, 480, 720), 32, False),        # down block 0's largest call
+    ("down1_view", (1, 128, 5, 240, 360), 32, True),    # down block 1's first, after Downsample3D
+    ("c512", (1, 512, 13, 60, 90), 32, False),
+    ("one_frame", (1, 128, 1, 480, 720), 32, False),    # the first-frame encode's
+]
+GN_TARGET = 0.60   # the share of its bytes bound the pair reaches at down0 (bf16, SiLU)
+
+
+def gn_operands(torch, shape, permuted, seed):
+    """bf16 activations with an offset and a spread per channel (as the VAE's
+    norms see them), contiguous or as `_per_frame_conv2d`'s view ([B, T, C, H,
+    W] storage); bf16 weights near 1 and biases near 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, c, t, h, w = shape
+    per_c = lambda scale, add: (torch.rand(c, generator=gen, device="cuda") * scale + add)
+    spread, off = per_c(2.5, 0.5), per_c(2.0, -1.0)
+    if permuted:
+        x = torch.randn((b, t, c, h, w), generator=gen, device="cuda")
+        x = (x * spread[:, None, None] + off[:, None, None]).to(torch.bfloat16)
+        x = x.permute(0, 2, 1, 3, 4)
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x = (x * spread[:, None, None, None] + off[:, None, None, None]).to(torch.bfloat16)
+    weight = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    bias = (0.2 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+    return x, weight, bias
+
+
+def phase_group_norm(torch, kernels):
+    """Phase 1g: the VAE's GroupNorm + SiLU (csrc/group_norm_silu.cu), no
+    Pallas counterpart, at the encoder's shapes (`GN_SHAPES`), bf16 with the
+    SiLU. Each call against the function in float64 rounded where the plain
+    version rounds: within two bf16 spacings at the largest of |value|,
+    |affine value| and 1/256 of the terms the affine adds (the statistics can
+    flip the affine's rounding once, the SiLU's slope is at most 1.1, and
+    where the terms cancel an fp32 affine keeps its error of them); against
+    the plain version relative L2 2^-9 (its fp32 Welford statistics are about
+    1e-5 off at these sizes); the mean and rstd against float64 (1e-5 of
+    |mean| + std, 1e-4 relative); two launches. Timed in turns with the plain version (plain, kernel, kernel,
+    plain), beside the bytes bound (x read twice, y written once: 6 B a
+    value) and `F.silu(F.group_norm(x))` on the bf16 input as `library_ms`.
+    Returns the kernels-line numbers."""
+    import torch.nn.functional as F
+    from videopainter_tpu_torch.ops import group_norm as gn
+    rows, worst = {}, 0.0
+    for name, shape, groups, permuted in GN_SHAPES:
+        x, w, b = gn_operands(torch, shape, permuted, seed=1801)
+        if permuted == x.is_contiguous():
+            raise AssertionError(f"{name}: the operand's layout is not the one asked for")
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            before = dict(kernels.LAUNCHES)
+            y, mean, rstd = gn.group_norm_silu_cuda(x, groups, w, b, eps=1e-6, silu=True,
+                                                    stats=True)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if any(kernels.LAUNCHES[k] != before[k] + 1 for k in VAE_NORM_KEYS):
+                raise AssertionError(f"{name}: launches {kernels.LAUNCHES}, before {before}")
+            x64 = x.double().reshape(shape[0], groups, -1)
+            m64 = x64.mean(-1)
+            r64 = torch.rsqrt(x64.var(-1, unbiased=False) + 1e-6)
+            del x64
+            mean_err = ((mean.double() - m64).abs() / (m64.abs() + 1 / r64)).max().item()
+            rstd_err = ((rstd.double() - r64).abs() / r64).max().item()
+            # the function in float64, rounded where the plain version rounds
+            cg = shape[1] // groups
+            a = (r64.repeat_interleave(cg, dim=1)[..., None, None, None]
+                 * w.double()[:, None, None, None])
+            sh = (b.double()[:, None, None, None]
+                  - m64.repeat_interleave(cg, dim=1)[..., None, None, None] * a)
+            aff = (x.double() * a + sh).to(x.dtype)
+            ref = F.silu(aff.double()).to(x.dtype).float()
+            aff = aff.float()
+            # the scale of a value: |ref|, |affine|, or 1/256 of the terms the fp32 affine adds
+            # (|x a| + |s|), where they cancel and any fp32 affine keeps an error of them
+            scale = x.float().abs().mul_(a.abs().float()).add_(sh.abs().float()).div_(256)
+            scale = torch.maximum(torch.maximum(ref.abs(), aff.abs()), scale)
+            _, e = torch.frexp(scale.clamp_min(1e-30))
+            del scale
+            spacing = torch.ldexp(torch.ones_like(aff), e - 8)
+            del e
+            diff = (y.float() - ref).abs()
+            gaps = diff / spacing
+            at = int(gaps.argmax())
+            gap = gaps.flatten()[at].item()
+            share = (diff > 0).float().mean().item()
+            worst_at = (f"kernel {y.flatten()[at].item():.6g}, float64 {ref.flatten()[at].item():.6g}"
+                        f", affine {aff.flatten()[at].item():.6g}, x {x.flatten()[at].item():.6g}"
+                        f", spacing {spacing.flatten()[at].item():.3g}")
+            del gaps, diff
+            plain = gn.group_norm_silu_reference(x, groups, w, b, eps=1e-6, silu=True)
+            plain_gap = ((plain.float() - ref).abs() / spacing).max().item()
+            plain_l2 = ((y.float() - plain.float()).norm() / plain.float().norm()).item()
+            del aff, ref, spacing, plain
+            log(f"group_norm_silu {name} {list(shape)} g{groups} "
+                f"{'view' if permuted else 'contiguous'}: first call {first_s:.3f} s; against "
+                f"float64 largest gap {gap:.3f} bf16 spacings ({worst_at}), {share * 100:.4f} % of "
+                f"values differ (the plain version's largest {plain_gap:.3f}); against the plain "
+                f"version relative L2 {plain_l2:.2e}; mean error {mean_err:.2e} of |mean| + std, "
+                f"rstd {rstd_err:.2e}")
+            if gap > 2.0 or plain_l2 > 2 ** -9 or mean_err > 1e-5 or rstd_err > 1e-4:
+                raise AssertionError(f"group_norm_silu {name}: gap {gap}, against plain "
+                                     f"{plain_l2}, mean {mean_err}, rstd {rstd_err}")
+            worst = max(worst, gap)
+            del y, mean, rstd
+            n_iter = 10
+            ms, plain_ms, turns = in_turns(
+                torch, (lambda: gn.group_norm_silu_reference(x, groups, w, b, eps=1e-6,
+                                                             silu=True),
+                        lambda: gn.group_norm_silu(x, groups, w, b, eps=1e-6, silu=True)),
+                n_iter)
+            library_ms = cuda_time_ms(lambda: F.silu(F.group_norm(x, groups, w, b, 1e-6)),
+                                      n_iter)
+        nbytes = 6 * x.numel()
+        bound_ms = nbytes / H100_HBM_BYTES * 1e3
+        rows[name] = {"shape": list(shape), "groups": groups, "view": permuted, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                      "share_of_bound": bound_ms / ms, "max_ulp_gap": gap}
+        log(f"group_norm_silu {name}: kernels {ms:.4f} ms against its bytes bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s: {bound_ms / ms * 100:.1f} % "
+            f"of it, {nbytes / ms / 1e6:.0f} GB/s); plain version {plain_ms:.3f} ms (in turns: "
+            + ", ".join(f"{t:.4f}" for t in turns) + f"); F.group_norm + F.silu on bf16 "
+            f"{library_ms:.3f} ms")
+        del x
+    head = rows["down0"]
+    log(f"group_norm_silu targets: down0 at {head['share_of_bound'] * 100:.1f} % of its bytes "
+        f"bound (target {GN_TARGET * 100:.0f} %: "
+        f"{'met' if head['share_of_bound'] >= GN_TARGET else 'missed'})")
+    return {"max_ulp_gap": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": head["library_ms"],
+            "shape": head["shape"], "shapes": rows}
 
 
 def phase_uniform_kernels(torch, fa8):
@@ -2755,11 +2893,16 @@ def phase_train(torch, kernels):
     before = {n: p.detach().clone() for n, p in branch.named_parameters()}
     enc_s = []
     vae.encode = timed_calls(torch, vae.encode, enc_s)
+    from videopainter_tpu_torch.ops.basic import GroupNorm
+    encoder_norms = sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())
+    encoder_calls = []
+    hook = vae.encoder.register_forward_hook(lambda *a: encoder_calls.append(1))
 
     n_steps = args.steps + 1
     kernels.reset_launches()
     rec, state, metrics = sct.measure(t, args, argv=["chip_smoke.py phase 5"], init_s=init_s)
     launches = dict(kernels.LAUNCHES)
+    hook.remove()
     walls = [rec["first_step_s"]] + rec["step_walls_s"]
 
     # every block runs its forward once; every block that a trainable parameter
@@ -2770,13 +2913,16 @@ def phase_train(torch, kernels):
                 "flash_fwd": n_steps * (n_branch + n_layers + with_backward),
                 "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward,
                 "qk_norm_rope": n_steps * (n_branch + n_layers + with_backward),
-                "qk_norm_rope_bwd": n_steps * with_backward}
+                "qk_norm_rope_bwd": n_steps * with_backward,
+                # the encoder's GroupNorms: two launches a norm of every forward
+                **dict.fromkeys(VAE_NORM_KEYS, len(encoder_calls) * encoder_norms)}
     enc_per_step = len(enc_s) // n_steps
     for i, (w, m) in enumerate(zip(walls, metrics)):
         enc = sum(enc_s[i * enc_per_step:(i + 1) * enc_per_step])
         log(f"training step {i + 1}: {w:.3f} s wall (VAE encodes {enc:.3f} s of it, "
             f"{enc_per_step} calls), " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
-    log(f"training launches over {n_steps} steps: {launches} (expected {expected}); peak "
+    log(f"training launches over {n_steps} steps: {launches} (expected {expected}; "
+        f"{len(encoder_calls)} encoder forwards of {encoder_norms} GroupNorms); peak "
         f"memory {rec['peak_memory_gib']:.2f} GiB")
     if launches != expected:
         raise AssertionError(f"training launches {launches}, expected {expected}")
@@ -3592,15 +3738,18 @@ def sass_stats(kernels, sources):
 OLD_KEYS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma", "flash_int8_fwd_mma",
             "flash_int8_uniform_mma")
 PREP_KEYS = ("qk_norm_rope", "qk_norm_rope_bwd")
+VAE_NORM_KEYS = ("group_norm_stats", "group_norm_apply")
 
 
 def attention_launches(launches):
-    """`launches` without attention's prep counters. The phases that hold
-    every kernel's count exactly compare these; the prep's own counts are
-    held in phase 2 (one a joint_attention call) and phase 5 (forward and
-    recompute, one backward a call that trains), since a variant's extra key
-    pages (ID resampling, the previous window) add prep calls."""
-    return {k: v for k, v in launches.items() if k not in PREP_KEYS}
+    """`launches` without attention's prep counters and the VAE's GroupNorm
+    ones. The phases that hold every kernel's count exactly compare these;
+    the prep's own counts are held in phase 2 (one a joint_attention call)
+    and phase 5 (forward and recompute, one backward a call that trains),
+    since a variant's extra key pages (ID resampling, the previous window)
+    add prep calls; the GroupNorm's in phase 1g (two a call) and phase 5 (two
+    a norm of every encoder forward)."""
+    return {k: v for k, v in launches.items() if k not in PREP_KEYS + VAE_NORM_KEYS}
 
 
 def check_no_yardstick(launches, phase):
@@ -3625,6 +3774,7 @@ def main() -> int:
         from videopainter_tpu_torch.ops import flash_attention_int8 as fa8
         from videopainter_tpu_torch import native
         from videopainter_tpu_torch.ops import qk_prep
+        from videopainter_tpu_torch.ops import group_norm as gn
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing beside this script: {e}",
               file=sys.stderr)
@@ -3634,7 +3784,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t_all = t = time.perf_counter()
-    sources = (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES, *qk_prep.SOURCES)
+    sources = (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES, *qk_prep.SOURCES, *gn.SOURCES)
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
         for fut in [pool.submit(kernels.load, *src) for src in sources]:
             fut.result()
@@ -3675,6 +3825,7 @@ def main() -> int:
     b4 = timed_phase("1 int8", phase_int8_kernels, torch, fa, fa8)
     b5 = timed_phase("1 uniform int8", phase_uniform_kernels, torch, fa8)
     prep = timed_phase("1 attention's prep", phase_qk_prep, torch, kernels)
+    gnorm = timed_phase("1 VAE GroupNorm + SiLU", phase_group_norm, torch, kernels)
     free()
     launches, pipe = timed_phase("2 single clip from a prompt", phase_pipeline, torch, kernels)
     check_no_yardstick(launches, "phase 2")
@@ -3803,7 +3954,13 @@ def main() -> int:
                          "_rope_video_slice, left to XLA's fusion)",
              "launches": launches["qk_norm_rope"],
              "launches_training": train_launches["qk_norm_rope"],
-             "launches_bwd_training": train_launches["qk_norm_rope_bwd"], **prep}]
+             "launches_bwd_training": train_launches["qk_norm_rope_bwd"], **prep},
+            {"name": "group_norm_silu", "route": "cuda", "source": csrc + gn._SOURCE,
+             "replaces": "videopainter_tpu/ops/basic.py:209 (group_norm and silu, left to "
+                         "XLA's fusion)",
+             "launches": launches["group_norm_stats"] + launches["group_norm_apply"],
+             "launches_training": (train_launches["group_norm_stats"]
+                                   + train_launches["group_norm_apply"]), **gnorm}]
     print(json.dumps({"kernels": rows}), flush=True)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

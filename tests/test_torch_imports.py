@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                                "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
                                "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
                                "connected_components": 0, "qk_norm_rope": 0,
-                               "qk_norm_rope_bwd": 0}
+                               "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
+                               "group_norm_apply": 0}
     assert res["libs"] == []
     for name in ("quantize", "models.lora", "ops.flash_attention_int8", "ops.qk_prep",
                  "pipelines.inpaint_anyl", "tools.bench_int8_attn", "schedulers.ddim",

@@ -13,11 +13,15 @@ common PTX in `hopper.cuh`, the two int8 kernels' common parts in
 `int8_wgmma.cuh`). `flash_fwd.cu`, `flash_bwd.cu` (dQ and dK/dV)
 and `flash_int8_fwd.cu` (both int8 entries) are the first, mma.sync versions
 of those kernels, kept as a yardstick that chip_smoke.py times against the
-new ones; no path of the port calls them. Two sources have no Pallas
+new ones; no path of the port calls them. Three sources have no Pallas
 counterpart: `connected_components.cu`, the connected-components labelling
-of SAM2's mask post-processing (the reference's own CUDA kernel), and
+of SAM2's mask post-processing (the reference's own CUDA kernel),
 `qk_norm_rope.cu`, attention's per-head QK LayerNorm and RoPE, forward and
-backward (the JAX package leaves that prep to XLA's fusion).
+backward (the JAX package leaves that prep to XLA's fusion), and
+`group_norm_silu.cu`, the VAE's GroupNorm with the SiLU after it: split-group
+fp32 statistics and a fused apply (`ops/group_norm.py`), in place of the
+eager fp32 copy, `F.group_norm`, cast back and SiLU (the JAX package's
+`group_norm` and `silu` are XLA's fusion too).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
@@ -54,7 +58,8 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
                             "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
                             "connected_components": 0, "qk_norm_rope": 0,
-                            "qk_norm_rope_bwd": 0}
+                            "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
+                            "group_norm_apply": 0}
 PADDING: Dict[str, int] = {"latent_frames": 0, "tokens": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..config import VAEConfig
 from ..ops.basic import GroupNorm, init_random_, silu
+from ..ops.group_norm import group_norm_silu
 from ..utils.profiling import annotate
 
 Cache = Optional[Dict[str, Any]]
@@ -107,9 +108,14 @@ class SpatialNorm3D(nn.Module):
 def _norm_silu(norm: nn.Module, h: torch.Tensor, zq: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """silu(norm(h)), or silu(norm(h, zq)) for a SpatialNorm3D, under the
-    `vae.norm` span."""
+    `vae.norm` span. A GroupNorm and its SiLU are one call of
+    `ops/group_norm.py`; a SpatialNorm3D's GroupNorm takes the same kernels
+    without the SiLU, and its modulation and SiLU stay in PyTorch."""
     with annotate("vae.norm"):
-        return silu(norm(h) if zq is None else norm(h, zq))
+        if zq is None:
+            return group_norm_silu(h, norm.num_groups, norm.weight, norm.bias, eps=norm.eps,
+                                   silu=True)
+        return silu(norm(h, zq))
 
 
 class ResnetBlock3D(nn.Module):

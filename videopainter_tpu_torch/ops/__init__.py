@@ -1,6 +1,6 @@
 from .attention import Attention, fuse_qkv, fuse_qkv_projections, joint_attention, sdpa
-from .basic import (GroupNorm, LayerNorm, Linear, gelu_tanh, group_norm,
-                    init_random_, layer_norm, linear, silu)
+from .basic import (GroupNorm, LayerNorm, Linear, gelu_tanh, init_random_, layer_norm,
+                    linear, silu)
 from .embeddings import TimestepEmbedding, timestep_embedding
 from .feed_forward import FeedForward
 from .norms import AdaLayerNorm, LayerNormZero
@@ -11,7 +11,7 @@ from .sincos import get_3d_sincos_pos_embed
 
 __all__ = [
     "Attention", "fuse_qkv", "fuse_qkv_projections", "joint_attention", "sdpa",
-    "GroupNorm", "LayerNorm", "Linear", "gelu_tanh", "group_norm", "init_random_",
+    "GroupNorm", "LayerNorm", "Linear", "gelu_tanh", "init_random_",
     "layer_norm", "linear", "silu",
     "TimestepEmbedding", "timestep_embedding", "FeedForward",
     "AdaLayerNorm", "LayerNormZero",

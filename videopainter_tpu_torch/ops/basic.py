@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .group_norm import group_norm_silu
+
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -65,8 +67,9 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
                bias: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm over channel-first input [B, C, *spatial] with fp32 statistics
-    (per batch and group, across all spatial dims)."""
-    return F.group_norm(x.float(), num_groups, weight.float(), bias.float(), eps).to(x.dtype)
+    (per batch and group, across all spatial dims): `ops/group_norm.py`, the
+    CUDA kernels on the card, the plain version on the CPU."""
+    return group_norm_silu(x, num_groups, weight, bias, eps=eps)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
