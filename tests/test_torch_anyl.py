@@ -41,7 +41,6 @@ from videopainter_tpu_torch.pipelines import (CogVideoXI2VDualInpaintAnyLPipelin
 from videopainter_tpu_torch.quantize import quantize_transformer_int8
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 
-torch.set_num_threads(2)
 
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12)
 RS_KW = dict(DIT_KW, id_pool_resample_learnable=True)

@@ -44,7 +44,6 @@ from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 from videopainter_tpu_torch.utils import compact_params
 
 cv2 = pytest.importorskip("cv2")
-torch.set_num_threads(2)
 
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12)
 STEPS = 2

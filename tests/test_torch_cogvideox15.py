@@ -49,7 +49,6 @@ if BENCH not in sys.path:
 import reference.cogvideox15 as ref15  # noqa: E402
 from reference.vae_encoder import Encoder  # noqa: E402
 
-torch.set_num_threads(2)
 
 FRAMES, HEIGHT, WIDTH = 9, 32, 48     # 3 x 4 x 6 latents, padded to 4 frames
 TOL = 1e-5

@@ -31,7 +31,6 @@ from videopainter_tpu_torch.evaluate.extractors import (ClipExtractor, I3DExtrac
 from videopainter_tpu_torch.evaluate.lpips import (LPIPS, LpipsExtractor,
                                                    convert_lpips_state_dict, lpips_forward)
 
-torch.set_num_threads(2)
 REL = 1e-9
 
 

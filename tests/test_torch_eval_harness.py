@@ -33,7 +33,6 @@ import videopainter_tpu_torch.evaluate.metrics as pm  # noqa: E402
 from test_cli_integration import make_ckpts  # noqa: E402
 from test_eval_cli import make_davis  # noqa: E402
 
-torch.set_num_threads(2)
 REL = 1e-6
 CLOCKS = ("time_per_frame_s",)
 

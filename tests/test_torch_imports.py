@@ -35,8 +35,6 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res["bad"] == [], f"the port imported {res['bad']}"
     assert res["launches"] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
-                               "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
-                               "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
                                "connected_components": 0, "qk_norm_rope": 0,
                                "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
                                "group_norm_apply": 0}

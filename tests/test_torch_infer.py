@@ -56,8 +56,6 @@ from videopainter_tpu_torch.ops.basic import Int8Linear  # noqa: E402
 from videopainter_tpu_torch.quantize import save_ascales  # noqa: E402
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler  # noqa: E402
 
-torch.set_num_threads(2)
-
 
 def T(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))

@@ -34,11 +34,9 @@ from videopainter_tpu_torch.ops.basic import (Int8Linear, Linear, calibration, i
                                               quantize_linear_int8, quantize_weight_int8)
 from videopainter_tpu_torch.ops.flash_attention_int8 import (
     flash_attention_int8, flash_attention_int8_reference, flash_int8_fwd_cuda,
-    flash_int8_fwd_mma_cuda, int8_flash_uniform, int8_flash_uniform_mma_cuda,
-    int8_flash_uniform_reference, quantize_qkv)
+    int8_flash_uniform, int8_flash_uniform_reference, quantize_qkv)
 from videopainter_tpu_torch.pipelines.common import prepare_rope
 
-torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -123,18 +121,18 @@ def test_int8_flash_cpu_wrapper_is_the_reference_and_checks_arguments():
 @pytest.mark.parametrize("blk_k", [64, 192])
 def test_int8_kernel_wrappers_refuse_blocks_their_tiles_do_not_divide(blk_k):
     """The wgmma kernel's tiles (128 rows, 128 keys) must divide the
-    quantization blocks; the mma.sync yardstick takes 64-key multiples. Both
-    check before they look for a card."""
+    quantization blocks. The wrapper checks before it looks for a card, and
+    without one it raises instead of running the plain version."""
     q, k, v = map(T, qkv(130, 260))
     qq = quantize_qkv(q, k, v, blk_q=128, blk_k=blk_k, int8_pv=False)
     with pytest.raises(ValueError, match="128 keys"):
         flash_int8_fwd_cuda(qq, 0.125, 260, None, 128, blk_k, False)
+    with pytest.raises(ValueError, match="128 rows"):
+        flash_int8_fwd_cuda(qq, 0.125, 260, None, 64, 128, False)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        flash_int8_fwd_mma_cuda(qq, 0.125, 260, None, 128, blk_k, False)
-    with pytest.raises(ValueError, match="128 rows"):
-        flash_int8_fwd_mma_cuda(qq, 0.125, 260, None, 64, blk_k, False)
+        flash_int8_fwd_cuda(qq, 0.125, 260, None, 128, 128, False)
 
 
 def test_quantize_qkv_blocks_and_scales():
@@ -240,24 +238,18 @@ def test_int8_uniform_wrapper_matches_jax_tool(jax_tool, int8_pv):
 
 
 def test_int8_uniform_entries_check_their_arguments():
-    """Both uniform entries (the Hopper kernel behind `int8_flash_uniform` and
-    the mma.sync yardstick) refuse mismatched shapes and a kv_len outside
-    [1, S_k] before they look for a card; without a card the kernels raise
-    instead of running the plain version."""
+    """The uniform entry (the Hopper kernel behind `int8_flash_uniform`)
+    refuses mismatched shapes and a kv_len outside [1, S_k] before it looks at
+    the device, and a device that is neither the CPU nor a card."""
     q = torch.zeros((2, 130, 64), dtype=torch.int8)
     v = torch.zeros((2, 130, 64), dtype=torch.bfloat16)
-    for fn in (int8_flash_uniform, int8_flash_uniform_mma_cuda):
-        with pytest.raises(ValueError, match="matching N"):
-            fn(q, q[:, :, :32], v, 0.125, 1e-3, 130)
-        with pytest.raises(ValueError, match="matching N"):
-            fn(q[0], q[0], v[0], 0.125, 1e-3, 130)
-        for bad in (0, 131):
-            with pytest.raises(ValueError, match="kv_len"):
-                fn(q, q, v, 0.125, 1e-3, bad)
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        int8_flash_uniform_mma_cuda(q, q, v, 0.125, 1e-3, 130)
+    with pytest.raises(ValueError, match="matching N"):
+        int8_flash_uniform(q, q[:, :, :32], v, 0.125, 1e-3, 130)
+    with pytest.raises(ValueError, match="matching N"):
+        int8_flash_uniform(q[0], q[0], v[0], 0.125, 1e-3, 130)
+    for bad in (0, 131):
+        with pytest.raises(ValueError, match="kv_len"):
+            int8_flash_uniform(q, q, v, 0.125, 1e-3, bad)
     with pytest.raises(ValueError, match="cpu or cuda"):
         int8_flash_uniform(q.to("meta"), q.to("meta"), v.to("meta"), 0.125, 1e-3, 130)
 
@@ -590,9 +582,9 @@ def test_load_ascales_reads_the_repository_file(tmp_path):
 
 @pytest.mark.cuda
 def test_int8_flash_kernel_matches_reference_on_the_card():
-    """The CUDA kernels have no CPU mode: on a card, hold the wgmma kernel the
-    wrapper launches and the mma.sync kernel it replaced (the yardstick) to
-    their plain version (`int8`: 2^-6 of the largest output, two bf16 ulps;
+    """The CUDA kernel has no CPU mode: on a card, hold the wgmma kernel (through
+    `flash_attention_int8` and through the wrapper that launches it) to its
+    plain version (`int8`: 2^-6 of the largest output, two bf16 ulps;
     `int8pv`: 3 % relative L1, the P-rounding noise between tile and block
     running maxima), at a ragged kv_len and at a TMA edge (17 x 65)."""
     if not torch.cuda.is_available():
@@ -605,7 +597,7 @@ def test_int8_flash_kernel_matches_reference_on_the_card():
             qq = quantize_qkv(q, k, v, blk_q=128, blk_k=128, int8_pv=pv)
             outs = (flash_attention_int8(q, k, v, blk_q=128, blk_k=128, int8_pv=pv,
                                          kv_len=kv_len),
-                    flash_int8_fwd_mma_cuda(qq, 64 ** -0.5, kv_len, None, 128, 128, pv))
+                    flash_int8_fwd_cuda(qq, 64 ** -0.5, kv_len, None, 128, 128, pv))
             for out in outs:
                 out = out.float()
                 if pv:
@@ -616,10 +608,9 @@ def test_int8_flash_kernel_matches_reference_on_the_card():
 
 @pytest.mark.cuda
 def test_int8_uniform_kernel_matches_reference_on_the_card():
-    """The uniform-scale Hopper kernel and its mma.sync yardstick against their
-    plain version on a card: `int8` 2^-6 of the largest output; `int8pv`
-    rel_l1 0.017 (the new kernel) / 0.03 (the yardstick), the P-rounding
-    noise between 128- or 64-key tiles and 2048-key blocks."""
+    """The uniform-scale Hopper kernel against its plain version on a card:
+    `int8` 2^-6 of the largest output; `int8pv` rel_l1 0.017, the P-rounding
+    noise between 128-key tiles and 2048-key blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
     rng = np.random.default_rng(8)
@@ -630,9 +621,9 @@ def test_int8_uniform_kernel_matches_reference_on_the_card():
         for pv, v in ((False, v_bf), (True, v_i8)):
             ref = int8_flash_uniform_reference(q_i8, k_i8, v, 0.125, 3.0 / 127 ** 2, kv_len,
                                                int8_pv=pv).float()
-            for fn, limit in ((int8_flash_uniform, 0.017), (int8_flash_uniform_mma_cuda, 0.03)):
-                out = fn(q_i8, k_i8, v, 0.125, 3.0 / 127 ** 2, kv_len, int8_pv=pv).float()
-                if pv:
-                    assert (out - ref).abs().mean() <= limit * ref.abs().mean()
-                else:
-                    assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+            out = int8_flash_uniform(q_i8, k_i8, v, 0.125, 3.0 / 127 ** 2, kv_len,
+                                     int8_pv=pv).float()
+            if pv:
+                assert (out - ref).abs().mean() <= 0.017 * ref.abs().mean()
+            else:
+                assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()

@@ -6,7 +6,7 @@ its int8 P.V product (wgmma m64n64k32 s8, A from registers) hold different
 keys in a thread's registers: the accumulator 2 consecutive keys of each
 8-key chunk, the A fragment 4 consecutive k positions per register. The
 kernel packs P from the accumulator without a shuffle, so the wrapper writes
-V^T with its key columns permuted (`kernel_vt(..., permuted=True)`), and at
+V^T with its key columns permuted (`kernel_vt`), and at
 every k position it must hold the key whose probability the packed register
 holds there. Both register layouts are the PTX ISA's wgmma fragments for
 (warp, g = lane / 4, t = lane % 4, register). The same file models the
@@ -51,7 +51,7 @@ def vt_keys(s_k):
     """The key at each column of the wrapper's V^T (-1: padding), read by
     running the layout function on key indices."""
     keys = torch.arange(s_k, dtype=torch.int64)[None, None, :, None]
-    vt = fa8.kernel_vt(keys + 1, TILE, permuted=True)    # + 1: 0 marks padding
+    vt = fa8.kernel_vt(keys + 1, TILE)    # + 1: 0 marks padding
     return vt[0, 0, 0].numpy() - 1
 
 
@@ -95,11 +95,6 @@ def test_layout_pads_with_zeros_and_keeps_every_key(s_k):
     assert keys.shape == (pad,)
     assert sorted(keys[keys >= 0]) == list(range(s_k))
     assert (keys < 0).sum() == pad - s_k
-    # the mma.sync kernel reads the natural transpose, padded to its 64-key tile
-    v = torch.arange(1, s_k + 1)[None, None, :, None]
-    nat = fa8.kernel_vt(v, 64, permuted=False)[0, 0, 0].numpy()
-    assert nat.shape == (-(-s_k // 64) * 64,)
-    assert (nat[:s_k] == np.arange(1, s_k + 1)).all() and (nat[s_k:] == 0).all()
 
 
 @pytest.mark.parametrize("s_k", [16, 65, 300, 1000])
@@ -111,8 +106,8 @@ def test_int8_pv_product_over_the_permuted_vt_is_the_natural_one(s_k):
     rows, d = 24, 64
     p8 = torch.from_numpy(rng.integers(0, 128, (rows, s_k), dtype=np.int8))
     v8 = torch.from_numpy(rng.integers(-127, 128, (s_k, d), dtype=np.int8))
-    vt = fa8.kernel_vt(v8[None, None], TILE, permuted=True)[0, 0]          # [d, pad]
-    pt = fa8.kernel_vt(p8.T.contiguous()[None, None], TILE, permuted=True)[0, 0]   # [rows, pad]
+    vt = fa8.kernel_vt(v8[None, None], TILE)[0, 0]          # [d, pad]
+    pt = fa8.kernel_vt(p8.T.contiguous()[None, None], TILE)[0, 0]   # [rows, pad]
     assert vt.dtype == torch.int8 and vt.shape == (d, -(-s_k // TILE) * TILE)
     natural = p8.long() @ v8.long()
     assert torch.equal(pt.long() @ vt.long().T, natural)

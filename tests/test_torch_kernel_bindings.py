@@ -8,6 +8,7 @@ would silently cut a pointer or a stride at the call, and no test without a
 card could see it otherwise. Plain file parsing: no build, no card.
 """
 
+import ast
 import ctypes
 import re
 from pathlib import Path
@@ -61,7 +62,7 @@ _ENTRIES = entries()
 
 
 def test_every_entry_point_is_bound_and_every_binding_exists():
-    assert len(_ENTRIES) >= 10
+    assert len(_ENTRIES) >= 9
     assert set(bindings()) == set(_ENTRIES)
 
 
@@ -88,30 +89,58 @@ int helper(int a) { return a; }'''
         c_kind("double x")
 
 
-# (wgmma source, mma.sync source it replaced, entry point)
-REPLACED = [("flash_fwd_wgmma.cu", "flash_fwd.cu", "vp_flash_fwd"),
-            ("flash_dkv_wgmma.cu", "flash_bwd.cu", "vp_flash_dkv"),
-            ("flash_dq_wgmma.cu", "flash_bwd.cu", "vp_flash_dq"),
-            ("flash_int8_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_fwd"),
-            ("flash_int8_uniform_wgmma.cu", "flash_int8_fwd.cu", "vp_flash_int8_uniform_fwd")]
+# the warp-specialised Hopper kernels, on hopper.cuh's TMA, mbarrier and wgmma PTX
+WGMMA_SOURCES = ("flash_fwd_wgmma.cu", "flash_dkv_wgmma.cu", "flash_dq_wgmma.cu",
+                 "flash_int8_wgmma.cu", "flash_int8_uniform_wgmma.cu")
 
 
-def test_new_kernels_keep_the_entry_points_of_the_kernels_they_replace():
-    """flash_fwd_wgmma.cu / flash_dkv_wgmma.cu / flash_dq_wgmma.cu /
-    flash_int8_wgmma.cu / flash_int8_uniform_wgmma.cu declare exactly the
-    parameters of the mma.sync entries (flash_fwd.cu, flash_bwd.cu's
-    vp_flash_dkv and vp_flash_dq, flash_int8_fwd.cu's vp_flash_int8_fwd and
-    vp_flash_int8_uniform_fwd), so a wrapper switches kernels by switching
-    libraries."""
-    for new, old, entry in REPLACED:
-        assert _ENTRIES[(new, entry)] == _ENTRIES[(old, entry)]
-        text = (_kernels.CSRC / new).read_text()
+def test_wgmma_kernels_share_the_hopper_header_and_trap_their_waits():
+    """Each wgmma source includes hopper.cuh and issues its wgmma products;
+    its waits trap and its entry refuses a register count setmaxnreg cannot
+    feed."""
+    for source in WGMMA_SOURCES:
+        text = (_kernels.CSRC / source).read_text()
         assert '#include "hopper.cuh"' in text and "wgmma_" in text
-        # the waits trap and the entry refuses a register count setmaxnreg cannot feed
         assert "mbar_wait" in text and "check_registers" in text
     header = (Path(_kernels.CSRC) / "hopper.cuh").read_text()
     assert "setmaxnreg" in header and "cp.async.bulk.tensor.4d" in header
     assert "__trap()" in header and "ERR_REGISTERS" in header
+
+
+def launch_sites():
+    """{launch key: [(module, function, whether the function loads a kernel
+    library)]} of every `LAUNCHES[key] += 1` in the port's sources."""
+    port = Path(_kernels.__file__).resolve().parent
+    sites = {}
+    for path in sorted(port.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            calls = {ast.unparse(n.func) for n in ast.walk(fn) if isinstance(n, ast.Call)}
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.AugAssign) and isinstance(node.op, ast.Add)
+                        and isinstance(node.target, ast.Subscript)
+                        and ast.unparse(node.target.value).endswith("LAUNCHES")):
+                    key = ast.literal_eval(node.target.slice)
+                    sites.setdefault(key, []).append(
+                        (str(path.relative_to(port)), fn.name, "_kernels.load" in calls))
+    return sites
+
+
+_LAUNCH_SITES = launch_sites()
+
+
+@pytest.mark.parametrize("key", sorted(_kernels.LAUNCHES))
+def test_one_wrapper_counts_each_launch_key(key):
+    """As `_kernels.py` promises: a wrapper adds one to a kernel's key where
+    it launches that kernel (it loads the library) and nowhere else; and no
+    source counts a key that `LAUNCHES` lacks."""
+    sites = _LAUNCH_SITES.get(key, [])
+    assert len(sites) == 1, f"{key} is counted at {sites}"
+    module, function, loads = sites[0]
+    assert loads, f"{module}::{function} counts {key} but builds no kernel"
+    assert set(_LAUNCH_SITES) <= set(_kernels.LAUNCHES)
 
 
 @pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"), (-2, "tensor map"),
@@ -135,20 +164,15 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
 
 def test_uniform_int8_entry_is_bound_to_the_hopper_kernel():
     """`int8_flash_uniform` launches csrc/flash_int8_uniform_wgmma.cu under the
-    launch key flash_int8_uniform_fwd; the mma.sync entry of the same name in
-    csrc/flash_int8_fwd.cu is reachable only as the yardstick, under
-    flash_int8_uniform_mma. The new source folds the score conversion into
-    the softmax's FMA (the 1.5 * 2^23 shift) and keeps no scale table."""
+    launch key flash_int8_uniform_fwd. The source folds the score conversion
+    into the softmax's FMA (the 1.5 * 2^23 shift) and keeps no scale table."""
     import inspect
 
     assert fa8._UNIFORM_SOURCE == "flash_int8_uniform_wgmma.cu"
     assert (fa8._UNIFORM_SOURCE, fa8._UNIFORM_SIGNATURES) in fa8.SOURCES
     body = inspect.getsource(fa8.int8_flash_uniform)
     assert "_UNIFORM_SOURCE" in body and '"flash_int8_uniform_fwd"' in body
-    assert "_MMA_SOURCE" not in body
-    yard = inspect.getsource(fa8.int8_flash_uniform_mma_cuda)
-    assert "_MMA_SOURCE" in yard and '"flash_int8_uniform_mma"' in yard
-    assert {"flash_int8_uniform_fwd", "flash_int8_uniform_mma"} <= set(_kernels.LAUNCHES)
+    assert "flash_int8_uniform_fwd" in _kernels.LAUNCHES
     text = (_kernels.CSRC / fa8._UNIFORM_SOURCE).read_text()
     assert "0x4B400000" in text and "__fmul_ru" in text and "issue_qk" in text
     assert "sk_row" not in text and "kv_page" not in text

@@ -37,7 +37,6 @@ from videopainter_tpu_torch.ops.rope import apply_rotary_emb
 from videopainter_tpu_torch.pipelines.common import prepare_rope
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler, make_timesteps
 
-torch.set_num_threads(2)
 vp.set_numerics(conv_tf32=False)  # full fp32 (no effect on CPU)
 
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12)

@@ -18,8 +18,6 @@ from videopainter_tpu_torch.native import (connected_components_cuda,
                                            connected_components_reference,
                                            fill_holes_in_mask_scores, get_connected_components)
 
-torch.set_num_threads(2)
-
 
 def make_mask(seed=0, b=2, h=40, w=56, p=0.4):
     rng = np.random.RandomState(seed)

@@ -16,6 +16,7 @@ the local amax must fail that limit.
 
 import numpy as np
 import pytest
+import torch
 
 from videopainter_tpu_torch.parallel import run_local, workers
 
@@ -91,7 +92,7 @@ def test_mesh_constructors_errors_and_groups():
     finally:
         dist.destroy_process_group()
 
-    res = run_local(4, workers.mesh_rank, (2, 1, 2), timeout=60)
+    res = run_local(4, workers.mesh_rank, (2, 1, 2), timeout=60, threads=torch.get_num_threads())
     coords = [r["coords"] for r in res]
     assert coords == [(0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1)]
     assert [r["sum_model"] for r in res] == [1, 1, 5, 5]
@@ -145,7 +146,6 @@ def test_placements_equal_jax_specs(variant):
     too), FFN in, their biases and per-row scales; row-parallel out and FFN
     out weights; everything else replicated; ZeRO-2 moment specs as JAX's
     `optimizer_state_specs` converts them."""
-    import torch
 
     from videopainter_tpu.ops.attention import fuse_qkv_projections as jfuse
     from videopainter_tpu.parallel import sharding as js
@@ -275,7 +275,7 @@ def test_tp_pipeline_and_w8a8_forward_world2():
                       "timestep": np.array([500])}}
     cases = [("pipeline_rank", pipe), ("pipeline_rank", dict(pipe, control="bias_every_rank")),
              ("dit_rank", dit), ("dit_rank", dict(dit, control="local_amax"))]
-    res = run_local(2, workers.cases_rank, cases, timeout=240)
+    res = run_local(2, workers.cases_rank, cases, timeout=240, threads=torch.get_num_threads())
     one = workers.dit_rank(dict(dit, mesh=None))["sample"]
     for r in res:
         tp, broken, int8, int8_broken = r
@@ -312,7 +312,7 @@ def test_tp_sp_pipeline_world4():
     spec = {"mesh": (1, 2, 2), "models": models, "seq": "seq",
             "scheduler": ("ddim", jcfg.SchedulerConfig(**sched_kw).to_dict()),
             "call": dict(_port_call(inputs, call), use_flash=True)}
-    res = run_local(4, workers.pipeline_rank, spec, timeout=240)
+    res = run_local(4, workers.pipeline_rank, spec, timeout=240, threads=torch.get_num_threads())
     for r in res:
         assert r["out"].shape == ref.shape == (1, 9, 64, 96, 3)
         np.testing.assert_allclose(r["out"], ref, rtol=1e-4, atol=2e-4)
@@ -352,7 +352,7 @@ def test_dit_ring_and_sequence_parallel_world4():
                                    "grad": True,
                                    "inputs": {"hidden": hidden, "text": text,
                                               "timestep": t}}))
-    res = run_local(4, workers.cases_rank, cases, timeout=180)
+    res = run_local(4, workers.cases_rank, cases, timeout=180, threads=torch.get_num_threads())
     for i, ((_, spec), ref) in enumerate(zip(cases, refs)):
         one = workers.dit_rank(dict(spec, mesh=None, seq=None))
         for r in res:
@@ -410,7 +410,7 @@ def test_anyl_pipeline_sequence_parallel_world2():
         cases.append(("pipeline_rank", {"mesh": (1, 2, 1), "models": models, "seq": "seq",
                                         "pipeline": "anyl",
                                         "call": dict(x, use_flash=True, **call, **kw)}))
-    res = run_local(2, workers.cases_rank, cases, timeout=240)
+    res = run_local(2, workers.cases_rank, cases, timeout=240, threads=torch.get_num_threads())
     for r in res:
         for got, ref in zip(r, refs):
             assert got["out"].shape == ref.shape and ref.shape[2:] == (64, 96, 3)

@@ -12,13 +12,12 @@ tests/test_inference_sharding.py's rtol 2e-4, atol 2e-5.
 
 import numpy as np
 import pytest
+import torch
 
 from videopainter_tpu_torch.parallel import run_local, workers
 
 
 def _port_modules(models, quantize=False):
-    import torch
-
     import videopainter_tpu_torch.config as tcfg
     from videopainter_tpu_torch.convert import load_quantized
     from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBranch,
@@ -112,7 +111,7 @@ def test_shard_inference_params_pipeline_world2():
         jcfg.SchedulerConfig.cogvideox_5b_inference()), call, inputs)
     spec = {"mesh": (1, 1, 2), "models": models, "call": _port_call(inputs, call)}
     one = workers.pipeline_rank(dict(spec, mesh=None))
-    res = run_local(2, workers.pipeline_rank, spec, timeout=240)
+    res = run_local(2, workers.pipeline_rank, spec, timeout=240, threads=torch.get_num_threads())
     assert one["local_heads"] == 4
     np.testing.assert_allclose(one["out"], ref, rtol=2e-4, atol=2e-5)
     for r in res:

@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from videopainter_tpu_torch.parallel import run_local, workers
 
@@ -96,7 +97,8 @@ class Stack:
 
         cfg = jtrain.BranchTrainConfig(height=64, width=96, mask_add=True, **cfg_kw)
         batch = {k: jnp.asarray(v) for k, v in make_batch(b).items()}
-        prep = jtrain._make_prepare(self.jvae, self.jsched, cfg)(
+        # one jitted program: eager, the VAE encodes compile op by op
+        prep = jax.jit(jtrain._make_prepare(self.jvae, self.jsched, cfg))(
             self.vp, batch, jax.random.PRNGKey(0))
         prep = [np.asarray(x) for x in prep]
         rope = prepare_rope(self.jt, 64, 96, prep[4].shape[1],
@@ -115,7 +117,6 @@ class Stack:
 
 def _check_grads(stack_bp, named, jgrads):
     import jax
-    import torch
 
     from videopainter_tpu_torch.convert.from_jax import to_jax_layout
 
@@ -160,7 +161,7 @@ def test_parallel_grad_steps_match_jax():
     lora_spec = s.spec(mesh=(1, 1, 2), prepared=p1, embeds=e1, lora=lora,
                        bcfg=dict(bcfg, lora_rank=4, lora_alpha=2.0))
     cases.append(("grad_step_rank", lora_spec))
-    res = run_local(2, workers.cases_rank, cases, timeout=240)
+    res = run_local(2, workers.cases_rank, cases, timeout=240, threads=torch.get_num_threads())
     one = workers.grad_step_rank(dict(lora_spec, mesh=None))
     for r in res:
         for got, jm, jg in ((r[0], jm2, jg2), (r[1], jm1, jg1), (r[2], jm1, jg1)):
@@ -199,7 +200,7 @@ def test_train_mesh_zero2_resume_and_adafactor(tmp_path):
     d = lambda name: str(tmp_path / name)
     cases = [("trainer_rank", _trainer_spec(s, d("zero"), 2, mesh=(2, 1, 1))),
              ("trainer_rank", _trainer_spec(s, d("zero_af"), 2, "adafactor", mesh=(2, 1, 1)))]
-    res = run_local(2, workers.cases_rank, cases, timeout=240)
+    res = run_local(2, workers.cases_rank, cases, timeout=240, threads=torch.get_num_threads())
     one = workers.trainer_rank(_trainer_spec(s, d("one"), 2))
     one_af = workers.trainer_rank(_trainer_spec(s, d("one_af"), 2, "adafactor"))
     for case, ref, tol in ((0, one, 1e-5), (1, one_af, 2e-5)):
@@ -236,7 +237,6 @@ def test_tp_adafactor_step_matches_one_process_and_optax():
     import jax
     import jax.numpy as jnp
     import optax
-    import torch
 
     from videopainter_tpu.training.optim import make_optimizer as jmake
     from videopainter_tpu_torch.convert.from_jax import to_jax_layout
@@ -246,7 +246,7 @@ def test_tp_adafactor_step_matches_one_process_and_optax():
     spec = s.spec(mesh=(1, 1, 2), batch=make_batch(1), steps=1, optimizer=opt,
                   bcfg=dict(height=64, width=96, mask_add=True, remat=False),
                   return_params=True)
-    res = run_local(2, workers.train_rank, spec, timeout=240)
+    res = run_local(2, workers.train_rank, spec, timeout=240, threads=torch.get_num_threads())
     one = workers.train_rank(dict(spec, mesh=None))
     names = sorted(one["params"])
     sizes = [one["params"][k].size for k in names]
@@ -255,7 +255,8 @@ def test_tp_adafactor_step_matches_one_process_and_optax():
     jgrads = jax.tree.map(jnp.asarray, to_jax_layout(grads, s.bp))
     params0 = jax.tree.map(jnp.asarray, s.bp)
     tx = jmake(**opt)
-    updates, _ = tx.update(jgrads, tx.init(params0), params0)
+    # one program: eager, optax's Adafactor compiles op by op
+    updates, _ = jax.jit(tx.update)(jgrads, tx.init(params0), params0)
     want = jax.tree.map(np.asarray, optax.apply_updates(params0, updates))
     flat_want = dict(jax.tree_util.tree_flatten_with_path(want)[0])
     factored = [k for k in names if "transformer_blocks" in k and k.endswith("to_q.weight")]
@@ -276,7 +277,6 @@ def _cli_files(root, s):
     and prompt embeddings."""
     cv2 = pytest.importorskip("cv2")
     pd = pytest.importorskip("pandas")
-    import torch
 
     import videopainter_tpu_torch.config as tcfg
     from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBranch,
@@ -333,7 +333,7 @@ def test_cli_mesh_data_2(tmp_path):
                 "--first_frame_gt", "--device", "cpu", "--train_batch_size", "2"]
 
     res = run_local(2, workers.cli_rank, argv(os.path.join(root, "mesh")) + ["--mesh_data", "2"],
-                    timeout=240)
+                    timeout=240, threads=torch.get_num_threads())
     assert res[0]["step"] == res[1]["step"] == 1 and res[0]["checksum"] == res[1]["checksum"]
     cli.main(argv(os.path.join(root, "one")))
     name = os.path.join("export", "diffusion_pytorch_model.safetensors")

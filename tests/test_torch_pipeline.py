@@ -33,7 +33,6 @@ from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBran
 from videopainter_tpu_torch.pipelines import CogVideoXI2VDualInpaintPipeline
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 
-torch.set_num_threads(2)
 
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12)
 STEPS = 4

@@ -10,6 +10,7 @@ ring tests' (outputs 2e-5; gradients rtol 1e-4, atol 1e-5).
 
 import numpy as np
 import pytest
+import torch
 
 from videopainter_tpu_torch.parallel import run_local, workers
 
@@ -61,7 +62,7 @@ def test_ring_joint_and_plain_world4_match_jax():
                             "text_len": st}),
              ("ring_rank", {"mesh": (1, n, 1), "q": q2, "k": k2, "v": v2, "dout": d2,
                             "text_len": 0})]
-    res = run_local(n, workers.cases_rank, specs, timeout=120)
+    res = run_local(n, workers.cases_rank, specs, timeout=120, threads=torch.get_num_threads())
     for case, (qq, kk, vv, dd, t) in enumerate([(q, k, v, dout, st), (q2, k2, v2, d2, 0)]):
         out, grads = _jax_joint(qq, kk, vv, dd, t, n)
         ranks = [r[case] for r in res]
@@ -92,7 +93,6 @@ def test_ring_decomposition_matches_jax(n):
     the ranks) against JAX autodiff of it."""
     import jax
     import jax.numpy as jnp
-    import torch
 
     from videopainter_tpu.ops.attention import sdpa
     from videopainter_tpu_torch.parallel.ring_attention import (ring_backward_decomposition,

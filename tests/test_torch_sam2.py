@@ -40,7 +40,6 @@ from videopainter_tpu_torch.segmentation.image_predictor import (
 from videopainter_tpu_torch.segmentation.memory import MemoryAttention, MemoryEncoder
 from videopainter_tpu_torch.segmentation.sam_heads import MaskDecoder, PromptEncoder
 
-torch.set_num_threads(2)
 
 MODULE_TOL = dict(rtol=3e-4, atol=3e-5)    # test_sam2_modules.py
 E2E_TOL = dict(rtol=1e-3, atol=2e-3)       # test_sam2_e2e.py / test_sam2_image_golden.py

@@ -30,7 +30,6 @@ from videopainter_tpu_torch.training import (BranchTrainConfig, init_branch_trai
                                              make_branch_train_step)
 from videopainter_tpu_torch.utils import annotate
 
-torch.set_num_threads(2)
 
 SPANS = ("denoise.step", "dit.adaln", "attn", "train.step", "train.backward",
          "train.optimizer", "vae.encode", "vae.norm")

@@ -23,7 +23,6 @@ from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBran
 from videopainter_tpu_torch.pipelines import CogVideoXI2VDualInpaintAnyLPipeline
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 
-torch.set_num_threads(2)
 
 VAE_CFG = tcfg.VAEConfig.tiny(latent_channels=16)
 

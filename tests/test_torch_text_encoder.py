@@ -38,7 +38,6 @@ from videopainter_tpu_torch.pipelines import (CogVideoXI2VDualInpaintAnyLPipelin
                                               CogVideoXI2VDualInpaintPipeline)
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 
-torch.set_num_threads(2)
 
 T5_TINY = "tests/goldens/t5_tiny"   # d_model 32, 2 layers, vocab 512
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12,

@@ -47,7 +47,6 @@ from videopainter_tpu_torch.models import (AutoencoderKLCogVideoX, CogVideoXBran
 from videopainter_tpu_torch.tools import bench, bench_vae_decode, convert_checkpoint
 from videopainter_tpu_torch.tools import sweep_int8_blocks as sweep
 
-torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 MODEL_TOL = 1e-4
 INT8_ATOL = {False: 1e-5, True: 3e-3}

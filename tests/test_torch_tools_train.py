@@ -35,7 +35,6 @@ import torch
 
 from videopainter_tpu_torch.tools import smoke_chip_train as sct
 
-torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 SMOKE_LR = 1e-3
 

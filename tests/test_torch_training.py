@@ -51,7 +51,6 @@ from videopainter_tpu_torch.training import (BranchTrainConfig, encode_batch_lat
 from videopainter_tpu_torch.training import checkpoint as tckpt
 from videopainter_tpu_torch.training.train_branch import _x0_loss, tree_leaves
 
-torch.set_num_threads(2)
 
 DIT_KW = dict(in_channels=32, out_channels=16, sample_height=8, sample_width=12)
 SCHED_KW = dict(prediction_type="v_prediction")
@@ -380,8 +379,11 @@ def random_lora(s: Stack, seed=5, rank=4):
     return jax.tree.map(lambda x: (0.1 * rng.standard_normal(x.shape)).astype(np.float32), tree)
 
 
-@pytest.mark.parametrize("use_flash,remat", [(False, False), (True, True)])
-def test_lora_grad_step_matches_jax(stack_rs, use_flash, remat):
+@pytest.fixture(scope="module")
+def lora_reference(stack_rs):
+    """The JAX LoRA step on the ID-resample stack: prepared tensors, embeddings,
+    the adapter, its metrics and its gradient tree (read off an sgd(1.0)
+    update)."""
     s = stack_rs
     cfg = jax_cfg(lora_rank=4, lora_alpha=2.0)
     prep, embeds = jax_prepared(s, cfg)
@@ -394,8 +396,14 @@ def test_lora_grad_step_matches_jax(stack_rs, use_flash, remat):
     new, jm = jax_fetch(jstep, jstate, {"transformer": s.tp, "vae": s.vp, "branch": s.bp},
                         {k: jnp.asarray(v) for k, v in make_batch().items()},
                         jax.random.PRNGKey(0))
-    want = jax.tree.map(lambda p, n: np.asarray(p) - n, lora, new.trainable)
+    return prep, embeds, lora, jm, jax.tree.map(lambda p, n: np.asarray(p) - n, lora,
+                                                new.trainable)
 
+
+@pytest.mark.parametrize("use_flash,remat", [(False, False), (True, True)])
+def test_lora_grad_step_matches_jax(stack_rs, lora_reference, use_flash, remat):
+    s = stack_rs
+    prep, embeds, lora, jm, want = lora_reference
     dit, branch, vae = s.port()
     tap = GradTap()
     state = init_branch_train_state(lora_params(lora), tap)
@@ -574,8 +582,9 @@ def test_branch_adafactor_step_matches_jax(stack, branch_reference):
     assert max(map(len, state.opt_state["blocks"])) == 2 < len(names)
     leaves = tree_leaves(state.trainable)
     tgrads = branch_state_dict(jgrads)
+    jupdate = jax.jit(jopt.update)   # eager, optax's Adafactor compiles op by op
     for _ in range(2):
-        upd, jstate = jopt.update(jax.tree.map(jnp.asarray, jgrads), jstate, jp)
+        upd, jstate = jupdate(jax.tree.map(jnp.asarray, jgrads), jstate, jp)
         jp = optax.apply_updates(jp, upd)
         with torch.no_grad():
             topt.update_(leaves, [tgrads[k] for k in names], state.opt_state)

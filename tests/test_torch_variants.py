@@ -50,7 +50,6 @@ from videopainter_tpu_torch.ops.basic import Int8Linear
 from videopainter_tpu_torch.pipelines import common as tcommon
 from videopainter_tpu_torch.schedulers import CogVideoXDPMScheduler
 
-torch.set_num_threads(2)
 
 T2V_KW = dict(in_channels=16, out_channels=16, sample_height=8, sample_width=12)
 I2V_KW = dict(T2V_KW, in_channels=32)

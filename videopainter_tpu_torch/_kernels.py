@@ -10,12 +10,9 @@ into a shared library with a plain C interface, loaded through `ctypes`:
 the int8 flash forward, and `flash_int8_uniform_wgmma.cu`, its uniform-scale
 precursor (warp-specialised Hopper kernels: TMA, mbarriers, wgmma; their
 common PTX in `hopper.cuh`, the two int8 kernels' common parts in
-`int8_wgmma.cuh`). `flash_fwd.cu`, `flash_bwd.cu` (dQ and dK/dV)
-and `flash_int8_fwd.cu` (both int8 entries) are the first, mma.sync versions
-of those kernels, kept as a yardstick that chip_smoke.py times against the
-new ones; no path of the port calls them. Three sources have no Pallas
-counterpart: `connected_components.cu`, the connected-components labelling
-of SAM2's mask post-processing (the reference's own CUDA kernel),
+`int8_wgmma.cuh`). Three sources have no Pallas counterpart:
+`connected_components.cu`, the connected-components labelling of SAM2's
+mask post-processing (the reference's own CUDA kernel),
 `qk_norm_rope.cu`, attention's per-head QK LayerNorm and RoPE, forward and
 backward (the JAX package leaves that prep to XLA's fusion), and
 `group_norm_silu.cu`, the VAE's GroupNorm with the SiLU after it: split-group
@@ -55,8 +52,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
-                            "flash_fwd_mma": 0, "flash_dq_mma": 0, "flash_dkv_mma": 0,
-                            "flash_int8_fwd_mma": 0, "flash_int8_uniform_mma": 0,
                             "connected_components": 0, "qk_norm_rope": 0,
                             "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
                             "group_norm_apply": 0}

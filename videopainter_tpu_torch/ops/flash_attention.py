@@ -5,11 +5,7 @@ kernel `_flash_kernel` becomes `csrc/flash_fwd_wgmma.cu`, the backward kernels
 `_flash_dq_kernel` and `_flash_dkv_kernel` become `csrc/flash_dq_wgmma.cu`
 and `csrc/flash_dkv_wgmma.cu` (warp-specialised Hopper kernels: a TMA
 producer warp, an mbarrier ring, wgmma products); see the notes in each
-source for its design and what bounds it. The first, mma.sync versions of
-the three kernels (`csrc/flash_fwd.cu`; `vp_flash_dq` and `vp_flash_dkv` in
-`csrc/flash_bwd.cu`) stay reachable through `flash_fwd_mma_cuda` /
-`flash_dq_mma_cuda` / `flash_dkv_mma_cuda` only, as a yardstick that
-chip_smoke.py times against the new ones; no path of the port calls them.
+source for its design and what bounds it.
 `flash_attention_reference` is the forward in plain PyTorch: an online
 softmax over key chunks in float32 with the same key masks and logsumexp;
 `flash_attention_backward_reference` is the backward: the same formulas over
@@ -51,13 +47,9 @@ _DKV_SIGNATURES = {"vp_flash_dkv": _DKV_SIGNATURE}
 _DQ_SIGNATURE = [*([_P] * 7), _I, _I, _I, _I, *([_L] * 15), ctypes.c_float, _I, _I, _P]
 _DQ_SOURCE = "flash_dq_wgmma.cu"
 _DQ_SIGNATURES = {"vp_flash_dq": _DQ_SIGNATURE}
-_BWD_SOURCE = "flash_bwd.cu"   # the mma.sync dQ and dK/dV kernels (yardsticks only)
-_BWD_SIGNATURES = {"vp_flash_dq": _DQ_SIGNATURE, "vp_flash_dkv": _DKV_SIGNATURE}
-_MMA_SOURCE = "flash_fwd.cu"   # the mma.sync forward (yardstick only), same entry point
 # every (source, signatures) the port builds, as chip_smoke.py builds them
 SOURCES = ((_SOURCE, _SIGNATURES), (_DKV_SOURCE, _DKV_SIGNATURES),
-           (_DQ_SOURCE, _DQ_SIGNATURES), (_BWD_SOURCE, _BWD_SIGNATURES),
-           (_MMA_SOURCE, _SIGNATURES))
+           (_DQ_SOURCE, _DQ_SIGNATURES))
 HEAD_DIMS = (64,)
 
 
@@ -155,13 +147,17 @@ def _check_cuda_operands(q, k, v) -> Tuple[int, int, int, int]:
     return b, h, s_q, d
 
 
-def _launch_fwd(source, signatures, key, q, k, v, scale, kv_len, kv_page_len, with_lse):
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   kv_len: int, kv_page_len: Optional[int], with_lse: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch csrc/flash_fwd_wgmma.cu on the current stream. Returns
+    (out, lse|None); out is a [B, H, S_q, D] view of a [B, S_q, H, D] buffer."""
     b, h, s_q, d = _check_cuda_operands(q, k, v)
     s_k = k.shape[2]
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    lib = _kernels.load(source, signatures)
+    lib = _kernels.load(_SOURCE, _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vp_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -169,27 +165,9 @@ def _launch_fwd(source, signatures, key, q, k, v, scale, kv_len, kv_page_len, wi
                               b, h, s_q, s_k, *q.stride()[:3], *k.stride()[:3],
                               *v.stride()[:3], *out.stride()[:3], float(scale),
                               kv_len, kv_page_len or 0, stream)
-    _kernels.check(rc, key)
-    _kernels.LAUNCHES[key] += 1
+    _kernels.check(rc, "flash_fwd")
+    _kernels.LAUNCHES["flash_fwd"] += 1
     return out, lse
-
-
-def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                   kv_len: int, kv_page_len: Optional[int], with_lse: bool
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch csrc/flash_fwd_wgmma.cu on the current stream. Returns
-    (out, lse|None); out is a [B, H, S_q, D] view of a [B, S_q, H, D] buffer."""
-    return _launch_fwd(_SOURCE, _SIGNATURES, "flash_fwd", q, k, v, scale, kv_len,
-                       kv_page_len, with_lse)
-
-
-def flash_fwd_mma_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                       kv_len: int, kv_page_len: Optional[int], with_lse: bool
-                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The first, mma.sync forward (csrc/flash_fwd.cu), same contract as
-    `flash_fwd_cuda`: a yardstick for chip_smoke.py, counted apart."""
-    return _launch_fwd(_MMA_SOURCE, _SIGNATURES, "flash_fwd_mma", q, k, v, scale, kv_len,
-                       kv_page_len, with_lse)
 
 
 def flash_attention_backward_reference(
@@ -253,63 +231,34 @@ def _new_bshd(b, s, h, d, like):
     return torch.empty((b, s, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def _launch_dq(source, signatures, key, q, k, v, dout, lse, delta, scale, kv_len,
-               kv_page_len):
+def flash_dq_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
+                  kv_page_len: Optional[int]) -> torch.Tensor:
+    """Launch the dQ kernel of csrc/flash_dq_wgmma.cu on the current stream."""
     b, h, s_q, s_k, d, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
     dq = _new_bshd(b, s_q, h, d, q)
-    lib = _kernels.load(source, signatures)
+    lib = _kernels.load(_DQ_SOURCE, _DQ_SIGNATURES)
     with torch.cuda.device(q.device):
         rc = lib.vp_flash_dq(*ptrs, dq.data_ptr(), b, h, s_q, s_k, *strides,
                              *dq.stride()[:3], float(scale), kv_len, kv_page_len or 0,
                              torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, key)
-    _kernels.LAUNCHES[key] += 1
+    _kernels.check(rc, "flash_dq")
+    _kernels.LAUNCHES["flash_dq"] += 1
     return dq
-
-
-def flash_dq_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
-                  kv_page_len: Optional[int]) -> torch.Tensor:
-    """Launch the dQ kernel of csrc/flash_dq_wgmma.cu on the current stream."""
-    return _launch_dq(_DQ_SOURCE, _DQ_SIGNATURES, "flash_dq", q, k, v, dout, lse, delta,
-                      scale, kv_len, kv_page_len)
-
-
-def flash_dq_mma_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
-                      kv_page_len: Optional[int]) -> torch.Tensor:
-    """The first, mma.sync dQ kernel (`vp_flash_dq` of csrc/flash_bwd.cu), same
-    contract as `flash_dq_cuda`: a yardstick for chip_smoke.py, counted apart."""
-    return _launch_dq(_BWD_SOURCE, _BWD_SIGNATURES, "flash_dq_mma", q, k, v, dout, lse, delta,
-                      scale, kv_len, kv_page_len)
-
-
-def _launch_dkv(source, signatures, key, q, k, v, dout, lse, delta, scale, kv_len,
-                kv_page_len):
-    b, h, s_q, s_k, d, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
-    dk, dv = _new_bshd(b, s_k, h, d, k), _new_bshd(b, s_k, h, d, v)
-    lib = _kernels.load(source, signatures)
-    with torch.cuda.device(q.device):
-        rc = lib.vp_flash_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, *strides,
-                              *dk.stride()[:3], *dv.stride()[:3], float(scale), kv_len,
-                              kv_page_len or 0, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, key)
-    _kernels.LAUNCHES[key] += 1
-    return dk, dv
 
 
 def flash_dkv_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
                    kv_page_len: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel of csrc/flash_dkv_wgmma.cu on the current stream."""
-    return _launch_dkv(_DKV_SOURCE, _DKV_SIGNATURES, "flash_dkv", q, k, v, dout, lse, delta,
-                       scale, kv_len, kv_page_len)
-
-
-def flash_dkv_mma_cuda(q, k, v, dout, lse, delta, scale: float, kv_len: int,
-                       kv_page_len: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first, mma.sync dK/dV kernel (`vp_flash_dkv` of csrc/flash_bwd.cu),
-    same contract as `flash_dkv_cuda`: a yardstick for chip_smoke.py, counted
-    apart."""
-    return _launch_dkv(_BWD_SOURCE, _BWD_SIGNATURES, "flash_dkv_mma", q, k, v, dout, lse, delta,
-                       scale, kv_len, kv_page_len)
+    b, h, s_q, s_k, d, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
+    dk, dv = _new_bshd(b, s_k, h, d, k), _new_bshd(b, s_k, h, d, v)
+    lib = _kernels.load(_DKV_SOURCE, _DKV_SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.vp_flash_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, *strides,
+                              *dk.stride()[:3], *dv.stride()[:3], float(scale), kv_len,
+                              kv_page_len or 0, torch.cuda.current_stream().cuda_stream)
+    _kernels.check(rc, "flash_dkv")
+    _kernels.LAUNCHES["flash_dkv"] += 1
+    return dk, dv
 
 
 def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

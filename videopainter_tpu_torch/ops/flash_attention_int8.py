@@ -4,10 +4,7 @@ its quantization prologue and its plain version.
 Counterpart of `videopainter_tpu/ops/flash_attention_int8.py`. The TPU kernel
 `_int8_flash_kernel` becomes `csrc/flash_int8_wgmma.cu`, a warp-specialised
 Hopper kernel (TMA producer warp, mbarrier ring, s8 and bf16 wgmma; see the
-note there for its design and what bounds it). Its first, mma.sync version
-(`vp_flash_int8_fwd` of `csrc/flash_int8_fwd.cu`) stays reachable through
-`flash_int8_fwd_mma_cuda` only, as a yardstick that chip_smoke.py times
-against the new one; no path of the port calls it. What the JAX package does
+note there for its design and what bounds it). What the JAX package does
 around its kernel stays plain PyTorch here (`quantize_qkv`): K is
 mean-centred per (batch, head) over all S_k rows, which shifts every score of
 a query row by the same constant and so leaves the softmax unchanged; Q and
@@ -28,15 +25,13 @@ the rounding return a zero gradient.
 `tools/bench_int8_attn.py::_int8_kernel`), `csrc/flash_int8_uniform_wgmma.cu`:
 already quantized operands, one scalar dequantization scale, the plain
 `kv_len` mask and `/ 127` on the int8 P.V product; the same Hopper design,
-with the int32 -> fp32 conversion folded into the softmax. Its first,
-mma.sync version (`vp_flash_int8_uniform_fwd` of `csrc/flash_int8_fwd.cu`)
-stays reachable through `int8_flash_uniform_mma_cuda` only, as a yardstick.
+with the int32 -> fp32 conversion folded into the softmax.
 
 In the int8 P.V mode the kernels read V transposed, `[B, H, D, S_k]` padded
 with zeros to their key tile (`kernel_vt`, written in the pass that
-transposes it). The wgmma kernel's s8 A fragment holds 4 consecutive k per
+transposes it). The kernels' s8 A fragment holds 4 consecutive k per
 thread where its score accumulator holds 2 consecutive keys per 8-key chunk,
-so its V^T has the key columns permuted within each 16-key group
+so their V^T has the key columns permuted within each 16-key group
 (`PERM16`): position 4t + i holds key 2t + i for i < 2 and key 8 + 2t + i - 2
 for i >= 2. The bytes are those of the plain transpose.
 """
@@ -58,15 +53,11 @@ _SIGNATURES = {"vp_flash_int8_fwd": _FWD_SIGNATURE}
 _UNIFORM_SIGNATURE = [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _F, _I, _I, _P]
 _UNIFORM_SOURCE = "flash_int8_uniform_wgmma.cu"
 _UNIFORM_SIGNATURES = {"vp_flash_int8_uniform_fwd": _UNIFORM_SIGNATURE}
-_MMA_SOURCE = "flash_int8_fwd.cu"   # the mma.sync kernels of both entries (yardsticks)
-_MMA_SIGNATURES = {"vp_flash_int8_fwd": _FWD_SIGNATURE,
-                   "vp_flash_int8_uniform_fwd": _UNIFORM_SIGNATURE}
 # every (source, signatures) the port builds, as chip_smoke.py builds them
-SOURCES = ((_SOURCE, _SIGNATURES), (_UNIFORM_SOURCE, _UNIFORM_SIGNATURES),
-           (_MMA_SOURCE, _MMA_SIGNATURES))
+SOURCES = ((_SOURCE, _SIGNATURES), (_UNIFORM_SOURCE, _UNIFORM_SIGNATURES))
 # the kernels' tiles (query rows, keys); quantization blocks are multiples of them
-_KERNEL_BLK_Q, _KERNEL_BLK_K, _MMA_BLK_K = 128, 128, 64
-# position 4t + i of a 16-key group of the wgmma kernel's V^T holds key PERM16[4t + i]
+_KERNEL_BLK_Q, _KERNEL_BLK_K = 128, 128
+# position 4t + i of a 16-key group of the kernels' V^T holds key PERM16[4t + i]
 PERM16 = tuple(2 * (p // 4) + p % 4 if p % 4 < 2 else 8 + 2 * (p // 4) + p % 4 - 2
                for p in range(16))
 _POS16 = tuple(PERM16.index(k) for k in range(16))   # the position of each key
@@ -192,24 +183,20 @@ def _check_cuda_operand(name: str, x: torch.Tensor, dtype, device, align: int) -
                          f"of {align} and a 16-byte aligned start; got strides {x.stride()}")
 
 
-def kernel_vt(v: torch.Tensor, tile: int, permuted: bool) -> torch.Tensor:
+def kernel_vt(v: torch.Tensor, tile: int) -> torch.Tensor:
     """[B, H, S_k, D] -> V^T [B, H, D, S_k padded with zeros to a multiple of
-    `tile`], the layout the kernels' int8 P.V product reads, in one pass; with
-    `permuted` each 16-key group's columns in the order `PERM16` (the wgmma
-    kernel's). Any dtype."""
+    `tile`], the layout the kernels' int8 P.V product reads, in one pass: each
+    16-key group's columns in the order `PERM16`. Any dtype."""
     b, h, s_k, d = v.shape
     pad = -(-s_k // tile) * tile
     vt = torch.zeros((b, h, d, pad), dtype=v.dtype, device=v.device)
-    if permuted:
-        key = torch.arange(s_k, device=v.device)
-        pos16 = torch.tensor(_POS16, device=v.device)
-        vt[..., key - key % 16 + pos16[key % 16]] = v.transpose(-1, -2)
-    else:
-        vt[..., :s_k] = v.transpose(-1, -2)
+    key = torch.arange(s_k, device=v.device)
+    pos16 = torch.tensor(_POS16, device=v.device)
+    vt[..., key - key % 16 + pos16[key % 16]] = v.transpose(-1, -2)
     return vt
 
 
-def _launch_args(q_i8, k_i8, v_in, int8_pv: bool, vt_tile: int, permuted: bool):
+def _launch_args(q_i8, k_i8, v_in, int8_pv: bool):
     """Checks shared by the entries; returns (out, the kernel's v operand)."""
     dev = q_i8.device
     b, h, s_q, d = q_i8.shape
@@ -220,38 +207,12 @@ def _launch_args(q_i8, k_i8, v_in, int8_pv: bool, vt_tile: int, permuted: bool):
     _check_cuda_operand("q (int8)", q_i8, torch.int8, dev, 16)
     _check_cuda_operand("k (int8)", k_i8, torch.int8, dev, 16)
     if int8_pv:
-        v_in = kernel_vt(v_in, vt_tile, permuted)
+        v_in = kernel_vt(v_in, _KERNEL_BLK_K)
         _check_cuda_operand("v (int8, transposed)", v_in, torch.int8, dev, 16)
     else:
         _check_cuda_operand("v", v_in, torch.bfloat16, dev, 8)
     out = torch.empty((b, s_q, h, d), dtype=torch.bfloat16, device=dev).transpose(1, 2)
     return out, v_in
-
-
-def _launch_int8(source, signatures, key, blk_k_tile, permuted, qq: QuantizedQKV,
-                 scale, kv_len, kv_page_len, blk_q, blk_k, int8_pv):
-    if blk_q % _KERNEL_BLK_Q or blk_k % blk_k_tile:
-        raise ValueError(f"the kernel's tiles ({_KERNEL_BLK_Q} rows, {blk_k_tile} keys) "
-                         f"must divide blk_q {blk_q} and blk_k {blk_k}")
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"{key} needs a CUDA device")
-    b, h, s_q, _ = qq.q_i8.shape
-    s_k = qq.k_i8.shape[2]
-    out, v_in = _launch_args(qq.q_i8, qq.k_i8, qq.v, int8_pv, blk_k_tile, permuted)
-    sq, sk = qq.sq.contiguous(), qq.sk.contiguous()
-    sv = qq.sv.contiguous() if int8_pv else None
-    lib = _kernels.load(source, signatures)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vp_flash_int8_fwd(
-            qq.q_i8.data_ptr(), qq.k_i8.data_ptr(), v_in.data_ptr(), out.data_ptr(),
-            sq.data_ptr(), sk.data_ptr(), sv.data_ptr() if sv is not None else None,
-            b, h, s_q, s_k, *qq.q_i8.stride()[:3], *qq.k_i8.stride()[:3],
-            *v_in.stride()[:3], *out.stride()[:3], float(scale), kv_len,
-            kv_page_len or 0, blk_q, blk_k, int(int8_pv), stream)
-    _kernels.check(rc, key)
-    _kernels.LAUNCHES[key] += 1
-    return out
 
 
 def flash_int8_fwd_cuda(qq: QuantizedQKV, scale: float, kv_len: int,
@@ -260,19 +221,28 @@ def flash_int8_fwd_cuda(qq: QuantizedQKV, scale: float, kv_len: int,
     """Launch csrc/flash_int8_wgmma.cu on the current stream with operands from
     `quantize_qkv`; its tiles (128 rows, 128 keys) must divide blk_q and
     blk_k. Returns bf16 [B, H, S_q, D], a view of a [B, S_q, H, D] buffer."""
-    return _launch_int8(_SOURCE, _SIGNATURES, "flash_int8_fwd", _KERNEL_BLK_K, True, qq, scale,
-                        kv_len, kv_page_len, blk_q, blk_k, int8_pv)
-
-
-def flash_int8_fwd_mma_cuda(qq: QuantizedQKV, scale: float, kv_len: int,
-                            kv_page_len: Optional[int], blk_q: int, blk_k: int,
-                            int8_pv: bool) -> torch.Tensor:
-    """The first, mma.sync int8 kernel (`vp_flash_int8_fwd` of
-    csrc/flash_int8_fwd.cu; tiles of 128 rows and 64 keys, the natural V^T),
-    same contract as `flash_int8_fwd_cuda`: a yardstick for chip_smoke.py,
-    counted apart."""
-    return _launch_int8(_MMA_SOURCE, _MMA_SIGNATURES, "flash_int8_fwd_mma", _MMA_BLK_K, False,
-                        qq, scale, kv_len, kv_page_len, blk_q, blk_k, int8_pv)
+    if blk_q % _KERNEL_BLK_Q or blk_k % _KERNEL_BLK_K:
+        raise ValueError(f"the kernel's tiles ({_KERNEL_BLK_Q} rows, {_KERNEL_BLK_K} keys) "
+                         f"must divide blk_q {blk_q} and blk_k {blk_k}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("flash_int8_fwd needs a CUDA device")
+    b, h, s_q, _ = qq.q_i8.shape
+    s_k = qq.k_i8.shape[2]
+    out, v_in = _launch_args(qq.q_i8, qq.k_i8, qq.v, int8_pv)
+    sq, sk = qq.sq.contiguous(), qq.sk.contiguous()
+    sv = qq.sv.contiguous() if int8_pv else None
+    lib = _kernels.load(_SOURCE, _SIGNATURES)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vp_flash_int8_fwd(
+            qq.q_i8.data_ptr(), qq.k_i8.data_ptr(), v_in.data_ptr(), out.data_ptr(),
+            sq.data_ptr(), sk.data_ptr(), sv.data_ptr() if sv is not None else None,
+            b, h, s_q, s_k, *qq.q_i8.stride()[:3], *qq.k_i8.stride()[:3],
+            *v_in.stride()[:3], *out.stride()[:3], float(scale), kv_len,
+            kv_page_len or 0, blk_q, blk_k, int(int8_pv), stream)
+    _kernels.check(rc, "flash_int8_fwd")
+    _kernels.LAUNCHES["flash_int8_fwd"] += 1
+    return out
 
 
 def _raise_under_autograd(*tensors: torch.Tensor) -> None:
@@ -325,33 +295,6 @@ def int8_flash_uniform_reference(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torc
                                 kv_page_len=None, out_dtype=torch.bfloat16)
 
 
-def _launch_uniform(source, signatures, key, vt_tile, permuted, q_i8, k_i8, v, sm_scale,
-                    deq_scale, kv_len, int8_pv):
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"{key} needs a CUDA device")
-    n, s_q, _ = q_i8.shape
-    s_k = k_i8.shape[1]
-    q4, k4 = q_i8[None], k_i8[None]
-    out, v_in = _launch_args(q4, k4, v[None], int8_pv, vt_tile, permuted)
-    lib = _kernels.load(source, signatures)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vp_flash_int8_uniform_fwd(
-            q4.data_ptr(), k4.data_ptr(), v_in.data_ptr(), out.data_ptr(), 1, n, s_q, s_k,
-            *q4.stride()[:3], *k4.stride()[:3], *v_in.stride()[:3], *out.stride()[:3],
-            float(sm_scale), float(deq_scale), kv_len, int(int8_pv), stream)
-    _kernels.check(rc, key)
-    _kernels.LAUNCHES[key] += 1
-    return out[0]
-
-
-def _check_uniform_args(q_i8, k_i8, v, kv_len):
-    if q_i8.ndim != 3 or k_i8.shape != v.shape or q_i8.shape[0] != k_i8.shape[0]:
-        raise ValueError("q_i8, k_i8, v must be [N, S, D] with matching N and key shapes")
-    if not 1 <= kv_len <= k_i8.shape[1]:
-        raise ValueError(f"kv_len {kv_len} out of range for S_k {k_i8.shape[1]}")
-
-
 def int8_flash_uniform(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
                        sm_scale: float, deq_scale: float, kv_len: int, *,
                        int8_pv: bool = False) -> torch.Tensor:
@@ -361,24 +304,26 @@ def int8_flash_uniform(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
     applies v's own scale). q_i8, k_i8: int8 [N, S, D]; v: bf16, or int8 with
     int8_pv; returns bf16 [N, S_q, D]. On CUDA tensors it launches
     csrc/flash_int8_uniform_wgmma.cu."""
-    _check_uniform_args(q_i8, k_i8, v, kv_len)
+    if q_i8.ndim != 3 or k_i8.shape != v.shape or q_i8.shape[0] != k_i8.shape[0]:
+        raise ValueError("q_i8, k_i8, v must be [N, S, D] with matching N and key shapes")
+    if not 1 <= kv_len <= k_i8.shape[1]:
+        raise ValueError(f"kv_len {kv_len} out of range for S_k {k_i8.shape[1]}")
     if q_i8.device.type == "cpu":
         return int8_flash_uniform_reference(q_i8, k_i8, v, sm_scale, deq_scale, kv_len,
                                             int8_pv=int8_pv)
     if q_i8.device.type != "cuda":
         raise ValueError(f"int8_flash_uniform runs on cpu or cuda tensors, got {q_i8.device}")
-    return _launch_uniform(_UNIFORM_SOURCE, _UNIFORM_SIGNATURES, "flash_int8_uniform_fwd",
-                           _KERNEL_BLK_K, True, q_i8, k_i8, v, sm_scale, deq_scale, kv_len,
-                           int8_pv)
-
-
-def int8_flash_uniform_mma_cuda(q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor,
-                                sm_scale: float, deq_scale: float, kv_len: int, *,
-                                int8_pv: bool = False) -> torch.Tensor:
-    """The first, mma.sync version of `int8_flash_uniform`'s kernel
-    (`vp_flash_int8_uniform_fwd` of csrc/flash_int8_fwd.cu; 64-key tiles, the
-    natural V^T), same contract on CUDA tensors: a yardstick for
-    chip_smoke.py, counted apart."""
-    _check_uniform_args(q_i8, k_i8, v, kv_len)
-    return _launch_uniform(_MMA_SOURCE, _MMA_SIGNATURES, "flash_int8_uniform_mma", _MMA_BLK_K,
-                           False, q_i8, k_i8, v, sm_scale, deq_scale, kv_len, int8_pv)
+    n, s_q, _ = q_i8.shape
+    s_k = k_i8.shape[1]
+    q4, k4 = q_i8[None], k_i8[None]
+    out, v_in = _launch_args(q4, k4, v[None], int8_pv)
+    lib = _kernels.load(_UNIFORM_SOURCE, _UNIFORM_SIGNATURES)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vp_flash_int8_uniform_fwd(
+            q4.data_ptr(), k4.data_ptr(), v_in.data_ptr(), out.data_ptr(), 1, n, s_q, s_k,
+            *q4.stride()[:3], *k4.stride()[:3], *v_in.stride()[:3], *out.stride()[:3],
+            float(sm_scale), float(deq_scale), kv_len, int(int8_pv), stream)
+    _kernels.check(rc, "flash_int8_uniform_fwd")
+    _kernels.LAUNCHES["flash_int8_uniform_fwd"] += 1
+    return out[0]

@@ -5,8 +5,8 @@ reference cache of the step-skip gate.
 Every artifact of `gate_int8_flagship`, `gate_skip_flagship` and
 `smoke_chip_anyl` carries `environment(...)`: the card's name and power
 limit (`nvidia-smi`), the torch and CUDA versions, the git commit, the
-argv, the launches of each kernel (`_kernels.LAUNCHES`; the mma.sync
-yardsticks must read 0) and the peak device memory. A PSNR of two
+argv, the launches of each kernel (`_kernels.LAUNCHES`) and the peak
+device memory. A PSNR of two
 bit-identical outputs is written as null beside `"identical": true`, and
 every artifact goes through `json.dump(..., allow_nan=False)`.
 """
@@ -29,10 +29,6 @@ from .. import _kernels, card_line
 
 REPO = Path(__file__).resolve().parents[2]
 GOLDENS = REPO / "tests" / "goldens"
-# the mma.sync kernels that phase 1 of chip_smoke.py times the Hopper kernels against;
-# no path of the port launches them
-YARDSTICKS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma", "flash_int8_fwd_mma",
-              "flash_int8_uniform_mma")
 MIN_PSNR_DB = 35.0   # the gate bar of the JAX package's bench.py
 reset_launches = _kernels.reset_launches
 # the seed of the weights every gate tool builds (`flagship.build_pipeline`):
@@ -70,11 +66,8 @@ def git_commit() -> Optional[str]:
 
 
 def launches() -> Dict[str, int]:
-    """The kernels' launch counts; raises if a yardstick kernel was launched."""
-    got = dict(_kernels.LAUNCHES)
-    if any(got[k] for k in YARDSTICKS):
-        raise AssertionError(f"a mma.sync yardstick kernel was launched: {got}")
-    return got
+    """The kernels' launch counts."""
+    return dict(_kernels.LAUNCHES)
 
 
 class LegLaunches:
