@@ -37,7 +37,11 @@ Phases (each fails the run loudly, exit code != 0):
     (csrc/group_norm_silu.cu, no Pallas counterpart): four encoder shapes,
     one of them the channel / frame view, against the plain version and
     float64 statistics, timed beside the bytes bound, the plain version and
-    F.group_norm + F.silu;
+    F.group_norm + F.silu. AdaLN (csrc/adaln.cu, no Pallas counterpart): the
+    forward against its plain version at cell 1's, the 1.5 cell's and the
+    training call's shapes, the backward against fp32 autograd at the
+    training shape, both timed beside their bytes bounds and the plain
+    version;
  2. the single-clip path at full CogVideoX-5b-I2V width from a prompt: T5-
     v1.1-XXL at its published width (seeded random weights, a word-hash
     tokenizer) encodes it and the empty negative prompt, then the flagship
@@ -904,6 +908,180 @@ def phase_group_norm(torch, kernels):
             "shape": head["shape"], "shapes": rows}
 
 
+ADALN_SHAPES = [   # (name, batch, video rows, text rows): the rows a LayerNormZero call sees
+    ("served", 2, 17776, 226),     # cell 1's CFG batch (17,550 video rows a clip; 17,776 the joint)
+    ("served15", 2, 44880, 226),   # the 1.5 cell's: 45,106 joint tokens
+    ("train", 1, 17550, 226),      # a training call: batch 1
+]
+ADALN_DIM = 3072
+ADALN_TARGET = 0.70   # the share of its bytes bound the forward reaches at the served shape
+
+
+def adaln_operands(torch, batch, rows, text, seed):
+    """bf16 rows with an offset and a spread each (a block's residual
+    stream), the fp32 modulation as `mod.chunk(6)` views, bf16 norm weights
+    near 1 and biases near 0. Returns (x, enc, (shift, scale, enc_shift,
+    enc_scale), weight, bias)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rows_of(n):
+        x = torch.randn((batch, n, ADALN_DIM), generator=gen, device="cuda")
+        spread = torch.rand((batch, n, 1), generator=gen, device="cuda") * 2.5 + 0.5
+        return (x * spread + torch.rand((batch, n, 1), generator=gen, device="cuda") - 0.5).to(
+            torch.bfloat16)
+
+    x, enc = rows_of(rows), rows_of(text)
+    mod = 0.5 * torch.randn((batch, 6 * ADALN_DIM), generator=gen, device="cuda")
+    shift, scale, _, enc_shift, enc_scale, _ = mod.chunk(6, dim=-1)
+    w = (1 + 0.1 * torch.randn(ADALN_DIM, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (0.1 * torch.randn(ADALN_DIM, generator=gen, device="cuda")).to(torch.bfloat16)
+    return x, enc, (shift, scale, enc_shift, enc_scale), w, b
+
+
+def row_ulp_gap(torch, got, ref):
+    """The largest |got - ref| in bf16 ulps of each row's largest |ref|."""
+    r = ref.float()
+    _, e = torch.frexp(r.abs().amax(-1, keepdim=True).clamp_min(1e-30))
+    return ((got.float() - r).abs() / torch.ldexp(torch.ones_like(r[..., :1]), e - 8)).max().item()
+
+
+def adaln_reference_grads(torch, A, xs, mods, w, b, dys):
+    """fp32 autograd through the plain version: (dx of each stream, d_shift,
+    d_scale of each, dweight, dbias). dx, dweight and dbias on fp32 copies of
+    the rows; the modulation's on the rows as they are, since its d_scale is
+    a sum of dy times the normed row rounded to the rows' dtype (what the
+    forward multiplied by 1 + scale), which an fp32 copy does not round."""
+    out = []
+    for rows_dtype in (torch.float32, None):
+        rx = [t.detach().to(rows_dtype or t.dtype).requires_grad_() for t in xs]
+        rm = [t.detach().clone().requires_grad_() for t in mods]
+        rw, rb = (t.detach().clone().requires_grad_() for t in (w, b))
+        ref = A.adaln_reference(rx[0], rm[0], rm[1], rw, rb, eps=1e-5, enc=rx[1],
+                                enc_shift=rm[2], enc_scale=rm[3])
+        out.append(torch.autograd.grad(ref, [*rx, *rm, rw, rb], [d.float() for d in dys]))
+    full, as_run = out
+    return [*full[:2], *as_run[2:6], *full[6:]]
+
+
+def phase_adaln(torch, kernels):
+    """Phase 1h: AdaLN's kernels (csrc/adaln.cu), no Pallas counterpart. The
+    forward against its plain version (the eager chain) at cell 1's shape
+    [2, 17,776, 3,072] + [2, 226, 3,072], the 1.5 cell's [2, 44,880] + [2,
+    226] and the training call's [1, 17,550] + [1, 226] (bf16, bf16 weights):
+    within one bf16 ulp of each row's largest value; one launch a call. The
+    backward against fp32 autograd through the plain version at the training
+    shape (relative L2 1e-3 for dx against the reference rounded to bf16, for
+    d_shift, d_scale, dweight and dbias against fp32; `adaln_reference_grads`).
+    Timed: the forward at
+    each shape beside its bytes bound (a bf16 value read and written once: 4 B,
+    plus 8 B a row of statistics where kept) and the plain version (in turns:
+    plain, kernel, kernel, plain); the backward with every gradient beside
+    its bound (x and dy read, dx written: 6 B a value, plus the statistics)
+    and the plain version's autograd backward. Returns the kernels-line
+    numbers."""
+    from videopainter_tpu_torch.ops import adaln as A
+    rows_out, worst = {}, 0.0
+    for name, batch, rows, text in ADALN_SHAPES:
+        x, enc, (sh, sc, esh, esc), w, b = adaln_operands(torch, batch, rows, text, seed=2001)
+        kw = dict(eps=1e-5, enc=enc, enc_shift=esh, enc_scale=esc)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            before = kernels.LAUNCHES["adaln_fwd"]
+            got = A.adaln(x, sh, sc, w, b, **kw)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if kernels.LAUNCHES["adaln_fwd"] != before + 1:
+                raise AssertionError(f"adaln {name}: {kernels.LAUNCHES['adaln_fwd'] - before} "
+                                     "launches for one call")
+            ref = A.adaln_reference(x, sh, sc, w, b, **kw)
+            gaps = [row_ulp_gap(torch, g, r) for g, r in zip(got, ref)]
+            share = sum((g != r).sum().item() for g, r in zip(got, ref)) / (x.numel() + enc.numel())
+            del got, ref
+            n_iter = 20
+            ms, plain_ms, turns = in_turns(
+                torch, (lambda: A.adaln_reference(x, sh, sc, w, b, **kw),
+                        lambda: A.adaln(x, sh, sc, w, b, **kw)), n_iter)
+            streams = [(x, sh, sc), (enc, esh, esc)]
+            stats_ms = cuda_time_ms(lambda: A.adaln_fwd_cuda(streams, w, b, eps=1e-5,
+                                                             save_stats=True), n_iter)
+        n_val = x.numel() + enc.numel()
+        n_rows = batch * (rows + text)
+        bound_ms = 4 * n_val / H100_HBM_BYTES * 1e3
+        stats_bound_ms = (4 * n_val + 8 * n_rows) / H100_HBM_BYTES * 1e3
+        worst = max(worst, *gaps)
+        rows_out[name] = {"shape": [batch, rows, text, ADALN_DIM], "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+                          "ms_with_stats": stats_ms, "bound_ms_with_stats": stats_bound_ms,
+                          "max_row_ulp_gap": max(gaps)}
+        log(f"adaln {name} [{batch}, {rows} + {text}, {ADALN_DIM}] bf16: first call (build and "
+            f"launch) {first_s:.3f} s; against its plain version largest gap "
+            f"{gaps[0]:.3f} / {gaps[1]:.3f} bf16 ulp of the row's max (video / text rows), "
+            f"{share * 100:.4f} % of values differ; kernel {ms:.4f} ms against its bytes bound "
+            f"{bound_ms:.4f} ms ({4 * n_val / 1e6:.0f} MB at 3.35 TB/s: "
+            f"{bound_ms / ms * 100:.1f} % of it, {4 * n_val / ms / 1e6:.0f} GB/s); with the "
+            f"statistics kept {stats_ms:.4f} ms (bound {stats_bound_ms:.4f}); plain version "
+            f"{plain_ms:.3f} ms (in turns: " + ", ".join(f"{t:.4f}" for t in turns) + ")")
+        if max(gaps) > 1.0:
+            raise AssertionError(f"adaln {name}: kernel against plain {gaps} bf16 ulps of the "
+                                 "row's max, above 1")
+        if name != "train":
+            del x, enc
+            continue
+        # the backward at the training shape, every gradient wanted (a branch block)
+        gen = torch.Generator(device="cuda").manual_seed(2002)
+        dys = [torch.randn(t.shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for t in (x, enc)]
+        w32, b32 = w.float(), b.float()
+        _, stats = A.adaln_fwd_cuda(streams, w32, b32, eps=1e-5, save_stats=True)
+
+        def bwd():
+            return A.adaln_bwd_cuda(streams, dys, stats, w32, b32, want_params=True)
+
+        dxs, (mod_grads, dw, db) = bwd()
+        bwd_ms = cuda_time_ms(bwd, n_iter)
+        bwd_dx_ms = cuda_time_ms(lambda: A.adaln_bwd_cuda(streams, dys, stats, w32, b32,
+                                                          want_params=False), n_iter)
+        rgrads = adaln_reference_grads(torch, A, (x, enc), (sh, sc, esh, esc), w32, b32, dys)
+        got = [*dxs, *mod_grads[0], *mod_grads[1], dw, db]
+        errs = []
+        for i, (g, r) in enumerate(zip(got, rgrads)):
+            r = r.to(torch.bfloat16).float() if i < 2 else r
+            errs.append(((g.float() - r).norm() / r.norm()).item())
+        del rgrads
+        log("adaln backward against fp32 autograd through the plain version at the training "
+            "shape, relative L2: " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(("dx", "d_enc", "d_shift", "d_scale",
+                                                 "d_enc_shift", "d_enc_scale", "dweight",
+                                                 "dbias"), errs)))
+        if max(errs) > 1e-3:
+            raise AssertionError(f"adaln backward relative L2 {errs} above 1e-3")
+        # the plain version's backward as training ran it: autograd through the eager chain
+        bx = [t.detach().requires_grad_() for t in (x, enc)]
+        bm = [t.detach().clone().requires_grad_() for t in (sh, sc, esh, esc)]
+        bw, bb = (t.detach().clone().requires_grad_() for t in (w32, b32))
+        plain_out = A.adaln_reference(bx[0], bm[0], bm[1], bw, bb, eps=1e-5, enc=bx[1],
+                                      enc_shift=bm[2], enc_scale=bm[3])
+        plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            plain_out, [*bx, *bm, bw, bb], dys, retain_graph=True), 5)
+        del plain_out
+        bwd_bound_ms = (6 * n_val + 8 * n_rows) / H100_HBM_BYTES * 1e3
+        rows_out[name].update(ms_bwd=bwd_ms, ms_bwd_dx_only=bwd_dx_ms, bound_ms_bwd=bwd_bound_ms,
+                              plain_ms_bwd=plain_bwd_ms, bwd_rel_l2=errs)
+        log(f"adaln backward [{batch}, {rows} + {text}, {ADALN_DIM}]: every gradient {bwd_ms:.4f} "
+            f"ms, dx alone {bwd_dx_ms:.4f} ms, against its bytes bound {bwd_bound_ms:.4f} ms "
+            f"({bwd_bound_ms / bwd_ms * 100:.1f} % / {bwd_bound_ms / bwd_dx_ms * 100:.1f} % of "
+            f"it); plain version's autograd backward {plain_bwd_ms:.3f} ms")
+        del x, enc, dys, dxs, stats
+    head = rows_out["served"]
+    log(f"adaln targets: the served forward at {head['share_of_bound'] * 100:.1f} % of its bytes "
+        f"bound, {head['ms']:.4f} ms (target {ADALN_TARGET * 100:.0f} %, "
+        f"{head['bound_ms'] / ADALN_TARGET:.3f} ms: "
+        f"{'met' if head['share_of_bound'] >= ADALN_TARGET else 'missed'})")
+    return {"max_row_ulp_gap": worst, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "shape": head["shape"], "shapes": rows_out}
+
+
 def phase_uniform_kernels(torch, fa8):
     """Phase 1, the uniform-scale int8 kernel (csrc/flash_int8_uniform_wgmma.cu)
     against its plain version in both modes: a masked tail of S not a multiple
@@ -1154,6 +1332,12 @@ def phase_pipeline(torch, kernels):
     if launches["flash_fwd"] != expected or launches["qk_norm_rope"] != expected:
         raise AssertionError(f"flash_fwd / qk_norm_rope launched {launches['flash_fwd']} / "
                              f"{launches['qk_norm_rope']} times, expected {expected}")
+    adaln_expected = (2 * (tcfg.num_layers + 2) + 1) * 2   # norm1, norm2 a block; norm_out
+    log(f"adaln_fwd launches {launches['adaln_fwd']} (expected {adaln_expected} = (2 x 44 "
+        f"blocks + norm_out) x 2 steps), adaln_bwd {launches['adaln_bwd']}")
+    if launches["adaln_fwd"] != adaln_expected or launches["adaln_bwd"]:
+        raise AssertionError(f"adaln launched {launches['adaln_fwd']} / {launches['adaln_bwd']} "
+                             f"times, expected {adaln_expected} / 0")
     del vae.encode, vae.decode   # the timing wrappers
     pipe.text_encoder = None   # T5 goes; phases 9 and 8 reuse the pipeline's models
     return launches, pipe
@@ -2850,6 +3034,9 @@ def phase_train(torch, kernels):
                 "flash_dq": n_steps * with_backward, "flash_dkv": n_steps * with_backward,
                 "qk_norm_rope": n_steps * (n_branch + n_layers + with_backward),
                 "qk_norm_rope_bwd": n_steps * with_backward,
+                # two norms a block, and the DiT's norm_out (outside the checkpoints)
+                "adaln_fwd": n_steps * (2 * (n_branch + n_layers + with_backward) + 1),
+                "adaln_bwd": n_steps * (2 * with_backward + 1),
                 # the encoder's GroupNorms: two launches a norm of every forward
                 **dict.fromkeys(VAE_NORM_KEYS, len(encoder_calls) * encoder_norms)}
     enc_per_step = len(enc_s) // n_steps
@@ -3672,17 +3859,21 @@ def sass_stats(kernels, sources):
 
 PREP_KEYS = ("qk_norm_rope", "qk_norm_rope_bwd")
 VAE_NORM_KEYS = ("group_norm_stats", "group_norm_apply")
+ADALN_KEYS = ("adaln_fwd", "adaln_bwd")
 
 
 def attention_launches(launches):
-    """`launches` without attention's prep counters and the VAE's GroupNorm
-    ones. The phases that hold every kernel's count exactly compare these;
-    the prep's own counts are held in phase 2 (one a joint_attention call)
-    and phase 5 (forward and recompute, one backward a call that trains),
-    since a variant's extra key pages (ID resampling, the previous window)
-    add prep calls; the GroupNorm's in phase 1g (two a call) and phase 5 (two
-    a norm of every encoder forward)."""
-    return {k: v for k, v in launches.items() if k not in PREP_KEYS + VAE_NORM_KEYS}
+    """`launches` without attention's prep counters, the VAE's GroupNorm
+    ones and AdaLN's. The phases that hold every kernel's count exactly
+    compare these; the prep's own counts are held in phase 2 (one a
+    joint_attention call) and phase 5 (forward and recompute, one backward a
+    call that trains), since a variant's extra key pages (ID resampling, the
+    previous window) add prep calls; the GroupNorm's in phase 1g (two a call)
+    and phase 5 (two a norm of every encoder forward); AdaLN's in phase 1h
+    (one a call), phase 2 (two a block and the DiT's norm_out, a step) and
+    phase 5 (as the prep's, with norm_out's forward and backward a step)."""
+    return {k: v for k, v in launches.items()
+            if k not in PREP_KEYS + VAE_NORM_KEYS + ADALN_KEYS}
 
 
 def main() -> int:
@@ -3703,6 +3894,7 @@ def main() -> int:
         from videopainter_tpu_torch import native
         from videopainter_tpu_torch.ops import qk_prep
         from videopainter_tpu_torch.ops import group_norm as gn
+        from videopainter_tpu_torch.ops import adaln
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing beside this script: {e}",
               file=sys.stderr)
@@ -3712,7 +3904,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t_all = t = time.perf_counter()
-    sources = (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES, *qk_prep.SOURCES, *gn.SOURCES)
+    sources = (*fa.SOURCES, *fa8.SOURCES, *native.SOURCES, *qk_prep.SOURCES, *gn.SOURCES,
+               *adaln.SOURCES)
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source, side by side
         for fut in [pool.submit(kernels.load, *src) for src in sources]:
             fut.result()
@@ -3753,6 +3946,7 @@ def main() -> int:
     b5 = timed_phase("1 uniform int8", phase_uniform_kernels, torch, fa8)
     prep = timed_phase("1 attention's prep", phase_qk_prep, torch, kernels)
     gnorm = timed_phase("1 VAE GroupNorm + SiLU", phase_group_norm, torch, kernels)
+    ada = timed_phase("1 AdaLN", phase_adaln, torch, kernels)
     free()
     launches, pipe = timed_phase("2 single clip from a prompt", phase_pipeline, torch, kernels)
     free()
@@ -3874,7 +4068,13 @@ def main() -> int:
                          "XLA's fusion)",
              "launches": launches["group_norm_stats"] + launches["group_norm_apply"],
              "launches_training": (train_launches["group_norm_stats"]
-                                   + train_launches["group_norm_apply"]), **gnorm}]
+                                   + train_launches["group_norm_apply"]), **gnorm},
+            {"name": "adaln", "route": "cuda", "source": csrc + adaln._SOURCE,
+             "replaces": "videopainter_tpu/ops/norms.py:17 (layer_norm_zero and "
+                         "ada_layer_norm, left to XLA's fusion)",
+             "launches": launches["adaln_fwd"],
+             "launches_training": train_launches["adaln_fwd"],
+             "launches_bwd_training": train_launches["adaln_bwd"], **ada}]
     print(json.dumps({"kernels": rows}), flush=True)
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                                "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                                "connected_components": 0, "qk_norm_rope": 0,
                                "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
-                               "group_norm_apply": 0}
+                               "group_norm_apply": 0, "adaln_fwd": 0, "adaln_bwd": 0}
     assert res["libs"] == []
     for name in ("quantize", "models.lora", "ops.flash_attention_int8", "ops.qk_prep",
                  "pipelines.inpaint_anyl", "tools.bench_int8_attn", "schedulers.ddim",

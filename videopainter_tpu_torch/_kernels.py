@@ -10,15 +10,18 @@ into a shared library with a plain C interface, loaded through `ctypes`:
 the int8 flash forward, and `flash_int8_uniform_wgmma.cu`, its uniform-scale
 precursor (warp-specialised Hopper kernels: TMA, mbarriers, wgmma; their
 common PTX in `hopper.cuh`, the two int8 kernels' common parts in
-`int8_wgmma.cuh`). Three sources have no Pallas counterpart:
+`int8_wgmma.cuh`). Four sources have no Pallas counterpart:
 `connected_components.cu`, the connected-components labelling of SAM2's
 mask post-processing (the reference's own CUDA kernel),
 `qk_norm_rope.cu`, attention's per-head QK LayerNorm and RoPE, forward and
-backward (the JAX package leaves that prep to XLA's fusion), and
+backward (the JAX package leaves that prep to XLA's fusion),
 `group_norm_silu.cu`, the VAE's GroupNorm with the SiLU after it: split-group
 fp32 statistics and a fused apply (`ops/group_norm.py`), in place of the
 eager fp32 copy, `F.group_norm`, cast back and SiLU (the JAX package's
-`group_norm` and `silu` are XLA's fusion too).
+`group_norm` and `silu` are XLA's fusion too), and `adaln.cu`, the DiT's AdaLN
+(`LayerNormZero`, `AdaLayerNorm`): the fp32 layer norm, the modulation and the
+casts in one pass, forward and backward (`ops/adaln.py`; XLA's fusion in the
+JAX package's `layer_norm_zero`).
 Libraries land in `build/torch_kernels/` at the root of the checkout (listed
 in `.gitignore`), named by a hash of the source, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. Nothing
@@ -54,7 +57,7 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                             "flash_int8_fwd": 0, "flash_int8_uniform_fwd": 0,
                             "connected_components": 0, "qk_norm_rope": 0,
                             "qk_norm_rope_bwd": 0, "group_norm_stats": 0,
-                            "group_norm_apply": 0}
+                            "group_norm_apply": 0, "adaln_fwd": 0, "adaln_bwd": 0}
 PADDING: Dict[str, int] = {"latent_frames": 0, "tokens": 0}
 BUILD_LOGS: Dict[str, str] = {}   # nvcc/ptxas output of each build (registers, spills)
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,8 +1,9 @@
 """AdaLN-style conditioning norms (CogVideoXLayerNormZero, AdaLayerNorm).
 
 Counterpart of `videopainter_tpu/ops/norms.py`. The modulation (linear of
-silu(temb)) and its application run in float32; outputs return to the
-activation dtype.
+silu(temb)) runs in float32; the norm and its modulation are `ops/adaln.py`
+`adaln` (one CUDA pass on the card, the eager chain on the CPU): outputs
+return to the activation dtype.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from ..utils.profiling import annotate
+from .adaln import adaln
 from .basic import LayerNorm, Linear, silu
 
 
@@ -37,14 +39,10 @@ class LayerNormZero(nn.Module):
             mod = self.linear(silu(temb.float()))
             shift, scale, gate, enc_shift, enc_scale, enc_gate = mod.chunk(6, dim=-1)
             dt = hidden_states.dtype
-            h = self.norm(hidden_states)
-            h = (h.float() * (1 + scale[:, None, :]) + shift[:, None, :]).to(dt)
-            if encoder_hidden_states is None:
-                return h, None, gate[:, None, :].to(dt), None
-            e = self.norm(encoder_hidden_states)
-            e = (e.float() * (1 + enc_scale[:, None, :]) + enc_shift[:, None, :]).to(
-                encoder_hidden_states.dtype)
-            return h, e, gate[:, None, :].to(dt), enc_gate[:, None, :].to(dt)
+            h, e = adaln(hidden_states, shift, scale, *self.norm.affine(), eps=self.norm.eps,
+                         enc=encoder_hidden_states, enc_shift=enc_shift, enc_scale=enc_scale)
+            return (h, e, gate[:, None, :].to(dt),
+                    None if e is None else enc_gate[:, None, :].to(dt))
 
 
 class AdaLayerNorm(nn.Module):
@@ -61,6 +59,4 @@ class AdaLayerNorm(nn.Module):
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         mod = self.linear(silu(temb.float()))
         shift, scale = mod.chunk(2, dim=-1)
-        y = self.norm(x)
-        y = y.float() * (1 + scale[:, None, :]) + shift[:, None, :]
-        return y.to(x.dtype)
+        return adaln(x, shift, scale, *self.norm.affine(), eps=self.norm.eps)[0]
